@@ -1,0 +1,113 @@
+"""Batch collate for the CNN family: raw DAQUAR samples -> fixed-shape numpy
+feeds (the JAX package's ``DaquarCollateBase`` and ``DaquarCnnCollate``).
+
+cv2 decode -> RGB -> resize to 256^2 -> ToTensor only (unnormalized), or
+the resized uint8 batch with ``emit_uint8``; question "[Question] {q}"
+padded to 16; decoder text "+ [Answer]" and answers padded to 20; label =
+a randomly chosen answer's index in the answer space (out-of-vocabulary
+answers fall back to the 'O' class), drawn from a seeded numpy Generator.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from ..core import constants
+from .daquar import Sample
+from .preprocessing import load_image_batch
+from .tokenizer import get_tokenizer
+
+
+class DaquarCollateBase:
+    def __init__(
+        self,
+        answer_spaces: Sequence[str],
+        lang_model: str = "t5-base",
+        eval_mode: bool = False,
+        seed: int = 0,
+        tokenizer=None,
+    ):
+        self.answer_spaces = [a.strip("\n") for a in answer_spaces]
+        self._answer_index = {a: i for i, a in enumerate(self.answer_spaces)}
+        self.eval_mode = eval_mode
+        # answer-space words get collision-free ids in the hash fallback
+        self.tokenizer = tokenizer or get_tokenizer(
+            lang_model, pinned_words=self.answer_spaces)
+        self.question_max_len = constants.QUESTION_MAX_LEN
+        self.decoder_max_len = constants.MAX_LEN
+        self.rng = np.random.default_rng(seed)
+        self._oov_index = self._answer_index.get("O", 0)
+        # False: batches carry no image array (decode and resize skipped)
+        self.emit_images = True
+
+    def _labels(self, samples: Sequence[Sample]):
+        """Pick one answer per sample (fresh each call) and map to ids."""
+        chosen: List[str] = []
+        ids = np.empty(len(samples), np.int32)
+        for i, s in enumerate(samples):
+            answers = s.annotation.answers
+            a = answers[int(self.rng.integers(len(answers)))]
+            chosen.append(a)
+            ids[i] = self._answer_index.get(a, self._oov_index)
+        return ids, chosen
+
+    def _text_feeds(self, samples: Sequence[Sample], chosen: List[str]):
+        q_texts = [f"{constants.QUESTION_SPECIAL_TOKEN} "
+                   f"{s.question.question_text}" for s in samples]
+        d_texts = [f"{constants.QUESTION_SPECIAL_TOKEN} "
+                   f"{s.question.question_text} "
+                   f"{constants.ANSWER_SPECIAL_TOKEN}" for s in samples]
+        q_ids, q_mask = self.tokenizer(q_texts, self.question_max_len)
+        d_ids, d_mask = self.tokenizer(d_texts, self.decoder_max_len)
+        a_ids, a_mask = self.tokenizer(chosen, constants.MAX_LEN)
+        return q_ids, q_mask, d_ids, d_mask, a_ids, a_mask
+
+    def _assemble(self, samples, images_key, images):
+        annotation_ids, chosen = self._labels(samples)
+        q_ids, q_mask, d_ids, d_mask, a_ids, a_mask = self._text_feeds(
+            samples, chosen)
+        batch: Dict[str, np.ndarray] = {
+            "question_input_ids": q_ids,
+            "decoder_question_input_ids": d_ids,
+            "question_attention_masks": q_mask,
+            "decoder_question_attention_masks": d_mask,
+            "annotation_ids": annotation_ids,
+            "answer_input_ids": a_ids,
+            "answer_attention_masks": a_mask,
+        }
+        if images is not None:
+            batch[images_key] = images
+        if self.eval_mode:
+            batch["answers"] = [s.annotation.answers for s in samples]
+            batch["questions"] = [s.question for s in samples]
+            batch["image_fns"] = [s.image_path for s in samples]
+        return batch
+
+
+class DaquarCnnCollate(DaquarCollateBase):
+    """CNN-family collate (reference DaquarFasterRcnnT5CollateFn)."""
+
+    def __init__(self, answer_spaces: Sequence[str],
+                 interpolation_strategy: str = "bilinear_interpolation",
+                 resizing_dimensions=(constants.CNN_IMAGE_SIZE,
+                                      constants.CNN_IMAGE_SIZE),
+                 lang_model: str = "t5-base", eval_mode: bool = False,
+                 seed: int = 0, tokenizer=None, emit_uint8: bool = False):
+        super().__init__(answer_spaces, lang_model, eval_mode, seed, tokenizer)
+        self.interpolation_strategy = interpolation_strategy
+        self.resizing_dimensions = tuple(resizing_dimensions)
+        self.emit_uint8 = emit_uint8
+
+    def load_images(self, paths: Sequence[str]) -> np.ndarray:
+        """[B, H, W, 3] float32 in [0, 1], or resized uint8 with
+        ``emit_uint8`` (the model divides by 255 on the device)."""
+        return load_image_batch(
+            list(paths), self.resizing_dimensions,
+            self.interpolation_strategy, emit_uint8=self.emit_uint8)
+
+    def __call__(self, samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
+        images = (self.load_images([s.image_path for s in samples])
+                  if self.emit_images else None)
+        return self._assemble(samples, "image_tensors", images)

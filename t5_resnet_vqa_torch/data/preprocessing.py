@@ -1,0 +1,67 @@
+"""Host-side image preprocessing: decode -> RGB -> resize -> scale.
+
+The cv2 path of the JAX package's ``data/preprocessing.py``: cv2.imread
+(BGR) -> cvtColor RGB -> cv2.resize with the configured interpolation ->
+float in [0, 1] (ToTensor parity, unnormalized as the CNN family takes it),
+NHWC. ``cv2`` is imported inside the functions, so the module imports on
+machines without it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+
+_CV2_INTERP = {
+    "bilinear_interpolation": 1,   # cv2.INTER_LINEAR
+    "lanczos_interpolation": 4,    # cv2.INTER_LANCZOS4
+    "bicubic_interpolation": 2,    # cv2.INTER_CUBIC
+}
+
+
+def decode_image(path: str) -> np.ndarray:
+    """File -> RGB uint8 HWC array."""
+    import cv2
+
+    arr = cv2.imread(path, cv2.IMREAD_COLOR)
+    if arr is None:
+        raise FileNotFoundError(f"cannot decode image: {path}")
+    return cv2.cvtColor(arr, cv2.COLOR_BGR2RGB)
+
+
+def load_and_resize_image(
+    path: str,
+    size: Tuple[int, int],
+    interpolation_strategy: str = "bilinear_interpolation",
+) -> np.ndarray:
+    """-> resized RGB uint8 [H, W, 3]."""
+    import cv2
+
+    img = decode_image(path)
+    w, h = size
+    return cv2.resize(img, (w, h),
+                      interpolation=_CV2_INTERP[interpolation_strategy])
+
+
+def finalize_image(img_u8: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] -> float32 [H, W, 3] in [0, 1]."""
+    return img_u8.astype(np.float32) / 255.0
+
+
+def load_image_batch(
+    paths: Sequence[str],
+    size: Tuple[int, int],
+    interpolation_strategy: str = "bilinear_interpolation",
+    emit_uint8: bool = False,
+) -> np.ndarray:
+    """-> [B, H, W, 3] float32 NHWC batch, or the resized uint8 batch when
+    ``emit_uint8`` (the model then scales on the device)."""
+    w, h = size
+    paths = list(paths)
+    out = np.empty((len(paths), h, w, 3),
+                   np.uint8 if emit_uint8 else np.float32)
+    for i, path in enumerate(paths):
+        img = load_and_resize_image(path, size, interpolation_strategy)
+        out[i] = img if emit_uint8 else finalize_image(img)
+    return out

@@ -1,0 +1,166 @@
+"""Tokenizers for the question/answer text path (the encoding half of the
+JAX package's ``data/tokenizer.py``; ``transformers`` stays a lazy import).
+
+The reference builds an HF ``AutoTokenizer.from_pretrained("t5-base")`` inside
+each collate and registers 3 + 11 extra special tokens WITHOUT resizing the
+model embedding — the new ids land in t5's 32100..32127 padding rows
+(resnet_vqa_daquar_dataset.py:113-129, SURVEY §2 C8). This module keeps that
+contract:
+
+  * ``HFTokenizer`` — wraps the real HF tokenizer when its files are cached
+    locally (offline machines usually have none).
+  * ``HashTokenizer`` — deterministic offline fallback with the same API and
+    id layout: pad=0, eos=1 (</s>), unk=2, word ids hashed into
+    [1000, 32000), special tokens pinned at 32100+ in the reference's
+    registration order. Same text always maps to the same ids, so training
+    and eval are reproducible without the sentencepiece model.
+
+Both produce fixed-shape int32 [B, max_length] id/mask arrays (static
+shapes; the reference's ``padding="longest"`` ViT-path questions are padded
+to QUESTION_MAX_LEN=16 instead — a documented divergence).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import re
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core import constants
+
+SPECIAL_TOKENS = (
+    constants.QUESTION_SPECIAL_TOKEN,
+    constants.ANSWER_SPECIAL_TOKEN,
+    constants.QUESTION_TYPE_SPECIAL_TOKEN,
+) + constants.QUESTION_TYPE_TOKENS
+
+
+class HashTokenizer:
+    """Offline deterministic tokenizer with the HF call surface we use.
+
+    Free-text words hash into [1000, 32000); by birthday statistics a few
+    hundred distinct words already make a collision likely (observed:
+    "vase" and "book" share a bucket), which would silently merge token
+    semantics. Collisions between ANSWER-SPACE words are the dangerous
+    case — they alias label words the classifier must distinguish — so
+    words appearing in ``pinned_words`` (the collates pass their answer
+    space) get collision-free ids from the reserved range [100, 1000),
+    assigned in sorted order. The assignment is deterministic given the
+    same answer space, which is part of the checkpoint contract
+    (model_ckpt_info.json), so train/eval/serving agree across processes.
+    """
+
+    pad_token_id = constants.PAD_TOKEN_ID
+    eos_token_id = constants.EOS_TOKEN_ID
+    unk_token_id = 2
+
+    _WORD_RE = re.compile(r"[a-zA-Z0-9']+|[^\sa-zA-Z0-9]")
+    _PINNED_BASE = 100
+    _PINNED_CAP = 1000
+
+    def __init__(self, vocab_size: int = constants.T5_VOCAB_SIZE,
+                 pinned_words: Optional[Sequence[str]] = None):
+        self.vocab_size = vocab_size
+        self.special_to_id = {
+            tok: constants.T5_FIRST_EXTRA_ID + i
+            for i, tok in enumerate(SPECIAL_TOKENS)
+        }
+        self._special_re = re.compile(
+            "(" + "|".join(re.escape(t) for t in SPECIAL_TOKENS) + ")")
+        self.pinned: dict = {}
+        self.scheme = "hash-v1"          # id-layout version (ckpt contract)
+        if pinned_words:
+            self.scheme = "hash-v2-pinned"
+            words = sorted({w.lower() for entry in pinned_words
+                            for w in self._WORD_RE.findall(entry)})
+            if self._PINNED_BASE + len(words) > self._PINNED_CAP:
+                raise ValueError(
+                    f"{len(words)} pinned words exceed the reserved id range "
+                    f"[{self._PINNED_BASE}, {self._PINNED_CAP})")
+            self.pinned = {w: self._PINNED_BASE + i
+                           for i, w in enumerate(words)}
+
+    def _word_id(self, word: str) -> int:
+        word = word.lower()
+        pinned = self.pinned.get(word)
+        if pinned is not None:
+            return pinned
+        h = int.from_bytes(
+            hashlib.md5(word.encode()).digest()[:4], "little")
+        return 1000 + h % 31000
+
+    def _tokenize(self, text: str) -> List[int]:
+        ids: List[int] = []
+        for chunk in self._special_re.split(text):
+            if not chunk:
+                continue
+            if chunk in self.special_to_id:
+                ids.append(self.special_to_id[chunk])
+            else:
+                ids.extend(self._word_id(w)
+                           for w in self._WORD_RE.findall(chunk))
+        return ids
+
+    def __call__(self, texts: Sequence[str], max_length: int,
+                 padding: str = "max_length",
+                 truncation: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (input_ids, attention_mask) int32 [B, max_length].
+
+        T5 semantics: sequence is closed with </s> (eos), then padded with 0.
+        """
+        B = len(texts)
+        ids = np.full((B, max_length), self.pad_token_id, np.int32)
+        mask = np.zeros((B, max_length), np.int32)
+        for i, text in enumerate(texts):
+            toks = self._tokenize(text)
+            toks = toks[: max_length - 1] + [self.eos_token_id]
+            ids[i, : len(toks)] = toks
+            mask[i, : len(toks)] = 1
+        return ids, mask
+
+
+class HFTokenizer:
+    """HF AutoTokenizer adapter with the reference's special-token setup."""
+
+    def __init__(self, lang_model: str = "t5-base"):
+        from transformers import AutoTokenizer  # deferred: needs cached files
+
+        # local_files_only: fail fast when no cache (offline machines)
+        self.tok = AutoTokenizer.from_pretrained(lang_model,
+                                                 local_files_only=True)
+        # reference registration order (resnet_vqa_daquar_dataset.py:121-129)
+        self.tok.add_special_tokens({"additional_special_tokens": [
+            constants.QUESTION_SPECIAL_TOKEN,
+            constants.ANSWER_SPECIAL_TOKEN,
+            constants.QUESTION_TYPE_SPECIAL_TOKEN,
+        ]})
+        self.tok.add_special_tokens({"additional_special_tokens":
+                                     list(constants.QUESTION_TYPE_TOKENS)})
+        self.pad_token_id = self.tok.pad_token_id
+        self.eos_token_id = self.tok.eos_token_id
+        self.vocab_size = constants.T5_VOCAB_SIZE
+        self.scheme = f"hf:{lang_model}"
+
+    def __call__(self, texts: Sequence[str], max_length: int,
+                 padding: str = "max_length",
+                 truncation: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+        out = self.tok(list(texts), return_tensors="np", padding="max_length",
+                       truncation=truncation, max_length=max_length)
+        return (out["input_ids"].astype(np.int32),
+                out["attention_mask"].astype(np.int32))
+
+
+def get_tokenizer(lang_model: str = "t5-base",
+                  pinned_words: Optional[Sequence[str]] = None):
+    """Best available real tokenizer:
+
+    1. HF AutoTokenizer when its files are cached locally,
+    2. HashTokenizer (deterministic offline fallback; ``pinned_words`` —
+       typically the answer space — get collision-free ids)."""
+    try:
+        return HFTokenizer(lang_model)
+    except (ImportError, OSError, ValueError):
+        # no transformers, or no locally cached tokenizer files
+        return HashTokenizer(pinned_words=pinned_words)

@@ -1,0 +1,123 @@
+"""Batched VQA inference session for the CNN family (the serving surface).
+
+PyTorch counterpart of ``VQAInferenceSession`` in the JAX package's
+``eval/session.py``: requests are collated exactly as in training, padded
+up to a fixed batch, run through one forward under ``torch.inference_mode``
+with the model in ``eval()``, and decoded against the answer space.
+
+``ask_batch`` launches every chunk's forward before it reads any result
+back, so chunk k+1's host preprocessing overlaps chunk k's device work
+(CUDA launches are asynchronous; the copies to the host at the end are the
+only synchronisations).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import DeviceLike, resolve_device
+from ..data.collate import DaquarCnnCollate
+from ..data.daquar import Annotation, Question, Sample
+from .predict import convert_logits_to_predictions_topk
+
+CNN_FAMILY = "cnn"
+
+# collate keys the forward does not take (the eval records, the dummy label)
+_HOST_KEYS = ("answers", "questions", "image_fns", "annotation_ids")
+
+
+class VQAInferenceSession:
+    """Ask (image path, question) pairs against a CNN-family VQA model.
+
+    ``state_dict``, when given, is loaded into ``model`` with
+    ``strict=True``. The model is moved to ``device`` (default ``"cuda"``,
+    which raises without a card; the CPU only when named) and put in
+    ``eval()`` mode.
+    """
+
+    def __init__(self, model: torch.nn.Module,
+                 state_dict: Optional[Mapping[str, torch.Tensor]],
+                 answer_spaces: Sequence[str], family: str = CNN_FAMILY,
+                 batch_size: int = 8, image_size: int = 256,
+                 device: DeviceLike = None):
+        if family != CNN_FAMILY:
+            raise NotImplementedError(
+                f"the port serves the {CNN_FAMILY!r} family only, "
+                f"not {family!r}")
+        self.device = resolve_device(device)
+        self.answer_spaces = list(answer_spaces)
+        self.batch_size = int(batch_size)
+        # uint8 images on the wire; the model divides by 255 on the device
+        self.collate = DaquarCnnCollate(
+            self.answer_spaces, resizing_dimensions=(image_size, image_size),
+            eval_mode=True, emit_uint8=True)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device).eval()
+
+    # ------------------------------------------------------------------ api
+
+    def ask(self, image: str, question: str, top_k: int = 1) -> dict:
+        """Single-request convenience wrapper (pads to the fixed batch)."""
+        return self.ask_batch([(image, question)], top_k=top_k)[0]
+
+    def ask_batch(self, requests: Sequence[Tuple[str, str]],
+                  top_k: int = 1) -> List[dict]:
+        """Each request is (image_path, question_text). Returns per-request
+        ``{"answer", "top_answers", "top_probs"}`` dicts, best first."""
+        pending = []   # (device log_probs, n_valid) per chunk, not yet read
+        for start in range(0, len(requests), self.batch_size):
+            chunk = requests[start:start + self.batch_size]
+            pending.append((self._dispatch_chunk(chunk), len(chunk)))
+        out: List[dict] = []
+        for log_probs, n in pending:
+            out.extend(self._decode(log_probs[:n].cpu().numpy(), top_k))
+        return out
+
+    # ------------------------------------------------------------- internals
+
+    def _collate_chunk(self, chunk: Sequence[Tuple[str, str]]
+                       ) -> Dict[str, np.ndarray]:
+        """Collate and pad a request chunk to the fixed batch shape."""
+        dummy = [self.answer_spaces[0]]
+        samples = [
+            Sample(Question(q, f"req_{i}", f"req_{i}"),
+                   Annotation(f"req_{i}", f"req_{i}", list(dummy)), img)
+            for i, (img, q) in enumerate(chunk)
+        ]
+        batch = self.collate(samples)
+        batch = {k: v for k, v in batch.items() if k not in _HOST_KEYS}
+        n = len(chunk)
+        if n < self.batch_size:
+            batch = {k: np.concatenate(
+                [v, np.repeat(v[:1], self.batch_size - n, axis=0)])
+                for k, v in batch.items()}
+        return batch
+
+    def _to_device(self, batch: Mapping[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device, non_blocking=True) for k, v in batch.items()}
+
+    def _predict(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """One forward on a device batch; returns fp32 log-probs [B, A]."""
+        with torch.inference_mode():
+            log_probs, _ = self.model(**batch)
+        return log_probs
+
+    def _dispatch_chunk(self, chunk: Sequence[Tuple[str, str]]
+                        ) -> torch.Tensor:
+        """Collate, pad, copy to the device and launch; no host sync."""
+        return self._predict(self._to_device(self._collate_chunk(chunk)))
+
+    def _decode(self, log_probs: np.ndarray, top_k: int) -> List[dict]:
+        order = convert_logits_to_predictions_topk(log_probs, top_k)
+        probs = np.exp(np.take_along_axis(log_probs, order, axis=-1))
+        return [{
+            "answer": self.answer_spaces[int(order[i, 0])],
+            "top_answers": [self.answer_spaces[int(j)] for j in order[i]],
+            "top_probs": [float(p) for p in probs[i]],
+        } for i in range(len(log_probs))]

@@ -1,0 +1,5 @@
+"""Utilities: the weight bridge from JAX param trees."""
+
+from .weights import state_dict_from_jax
+
+__all__ = ["state_dict_from_jax"]

@@ -1,0 +1,178 @@
+"""Weight bridge: JAX param trees (nested dicts of numpy arrays) -> the
+port's ``state_dict``, which is the reference's own layout.
+
+A copy of the numpy-only exporters of
+``t5_resnet_vqa_tpu/utils/torch_export.py`` that
+``export_resnet_vqa_checkpoint`` needs; the port keeps its own copy so that
+it never imports the JAX package. Conventions:
+
+  * flax Dense kernel [in, out]  -> Linear weight [out, in]
+  * flax Conv kernel HWIO        -> Conv2d weight OIHW
+  * equivalent SAME-conv kernel  -> ConvTranspose2d(k, s1, p1) weight
+                                    [I, O, kh, kw], spatial flip undone
+  * folded FrozenBatchNorm (scale, bias) -> BatchNorm with weight=scale,
+    bias=bias, running_mean=0, running_var=1-eps (eval-mode identical)
+  * modules the reference holds but never uses (the unused projection twin,
+    the backbone's ``fc``) are zeros, so strict loading succeeds.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def _put(out: Dict[str, Any], prefix: str, name: str, tensor) -> None:
+    out[f"{prefix}.{name}" if prefix else name] = tensor
+
+
+def export_linear(out, tree: Mapping[str, Any], prefix: str) -> None:
+    _put(out, prefix, "weight", _t(np.asarray(tree["kernel"]).T))
+    if "bias" in tree:
+        _put(out, prefix, "bias", _t(tree["bias"]))
+
+
+def export_layernorm(out, tree, prefix: str) -> None:
+    _put(out, prefix, "weight", _t(tree["scale"]))
+    _put(out, prefix, "bias", _t(tree["bias"]))
+
+
+def export_conv2d(out, tree, prefix: str) -> None:
+    _put(out, prefix, "weight",
+         _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1)))
+    if "bias" in tree:
+        _put(out, prefix, "bias", _t(tree["bias"]))
+
+
+def export_conv_as_conv_transpose2d(out, tree, prefix: str) -> None:
+    w = np.asarray(tree["kernel"]).transpose(2, 3, 0, 1)   # -> [I, O, kh, kw]
+    _put(out, prefix, "weight", _t(w[:, :, ::-1, ::-1]))
+    if "bias" in tree:
+        _put(out, prefix, "bias", _t(tree["bias"]))
+
+
+def export_frozen_batchnorm(out, tree, prefix: str, eps: float = 1e-5) -> None:
+    scale = np.asarray(tree["scale"])
+    _put(out, prefix, "weight", _t(scale))
+    _put(out, prefix, "bias", _t(tree["bias"]))
+    _put(out, prefix, "running_mean", torch.zeros(scale.shape[0]))
+    _put(out, prefix, "running_var",
+         torch.full((scale.shape[0],), 1.0 - eps))
+    _put(out, prefix, "num_batches_tracked", torch.zeros((), dtype=torch.int64))
+
+
+def export_embedding(out, tree, prefix: str) -> None:
+    _put(out, prefix, "weight", _t(tree["embedding"]))
+
+
+def export_rmsnorm(out, tree, prefix: str) -> None:
+    _put(out, prefix, "weight", _t(tree["weight"]))
+
+
+def export_mhatt(out, tree, prefix: str) -> None:
+    for m in ("linear_v", "linear_k", "linear_q", "linear_merge"):
+        export_linear(out, tree[m], f"{prefix}.{m}")
+
+
+def export_sga_stack(out, tree, num_blocks: int,
+                     prefix: str = "sga_modules") -> None:
+    for i in range(num_blocks):
+        b = tree[f"sga_{i}"]
+        p = f"{prefix}.{i}"
+        export_mhatt(out, b["mhatt1"], f"{p}.mhatt1")
+        export_mhatt(out, b["mhatt2"], f"{p}.mhatt2")
+        export_linear(out, b["ffn"]["mlp"]["fc1"], f"{p}.ffn.mlp.fc1")
+        export_linear(out, b["ffn"]["mlp"]["fc2"], f"{p}.ffn.mlp.fc2")
+        for n in ("norm1", "norm2", "norm3"):
+            export_layernorm(out, b[n], f"{p}.{n}.norm")
+
+
+def export_attention_pooler(out, tree,
+                            prefix: str = "attention_pooler") -> None:
+    export_linear(out, tree["attention"], f"{prefix}.attention.0")
+
+
+_RESNET_DEPTHS = {
+    "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
+    "resnet50": (3, 4, 6, 3),
+}
+_RESNET_BOTTLENECK = {"resnet18": False, "resnet34": False, "resnet50": True}
+_RESNET_FEATURES = {"resnet18": 512, "resnet34": 512, "resnet50": 2048}
+
+
+def export_resnet_torchvision(out, tree, variant: str,
+                              prefix: str = "") -> None:
+    p = f"{prefix}." if prefix else ""
+    export_conv2d(out, tree["conv1"], f"{p}conv1")
+    export_frozen_batchnorm(out, tree["bn1"], f"{p}bn1")
+    n_convs = 3 if _RESNET_BOTTLENECK[variant] else 2
+    for s, depth in enumerate(_RESNET_DEPTHS[variant], start=1):
+        for b in range(depth):
+            blk = tree[f"layer{s}_block{b}"]
+            bp = f"{p}layer{s}.{b}"
+            for c in range(1, n_convs + 1):
+                export_conv2d(out, blk[f"conv{c}"], f"{bp}.conv{c}")
+                export_frozen_batchnorm(out, blk[f"bn{c}"], f"{bp}.bn{c}")
+            if "downsample_conv" in blk:
+                export_conv2d(out, blk["downsample_conv"],
+                              f"{bp}.downsample.0")
+                export_frozen_batchnorm(out, blk["downsample_bn"],
+                                        f"{bp}.downsample.1")
+
+
+def _export_t5_attention(out, tree, prefix: str) -> None:
+    for m in ("q", "k", "v", "o"):
+        export_linear(out, tree[m], f"{prefix}.{m}")
+    if "relative_attention_bias" in tree:
+        export_embedding(out, tree["relative_attention_bias"],
+                         f"{prefix}.relative_attention_bias")
+
+
+def export_t5_encoder(out, tree, num_layers: int, prefix: str = "encoder",
+                      shared_key: str = "shared.weight") -> None:
+    out[shared_key] = _t(tree["shared"]["embedding"])
+    export_rmsnorm(out, tree["final_layer_norm"],
+                   f"{prefix}.final_layer_norm")
+    for i in range(num_layers):
+        blk = tree[f"block_{i}"]
+        b = f"{prefix}.block.{i}"
+        _export_t5_attention(out, blk["self_attn"],
+                             f"{b}.layer.0.SelfAttention")
+        export_rmsnorm(out, blk["self_attn_layer_norm"],
+                       f"{b}.layer.0.layer_norm")
+        export_linear(out, blk["ff"]["wi"], f"{b}.layer.1.DenseReluDense.wi")
+        export_linear(out, blk["ff"]["wo"], f"{b}.layer.1.DenseReluDense.wo")
+        export_rmsnorm(out, blk["ff_layer_norm"], f"{b}.layer.1.layer_norm")
+
+
+def state_dict_from_jax(params: Mapping[str, Any], variant: str,
+                        num_attention_blocks: int = 3,
+                        num_t5_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """ResnetVQAModel params (JAX layout) -> the port's ``state_dict``
+    (``ResnetVQAModel.load_state_dict(..., strict=True)`` takes it)."""
+    out: Dict[str, Any] = {}
+    export_resnet_torchvision(out, params["vision_model"], variant,
+                              "vision_model")
+    feats = _RESNET_FEATURES[variant]
+    out["vision_model.fc.weight"] = torch.zeros(1000, feats)
+    out["vision_model.fc.bias"] = torch.zeros(1000)
+    used = "downscale_layer" if variant == "resnet50" else "upscale_layer"
+    export_conv_as_conv_transpose2d(out, params[used]["conv"], used)
+    unused = "upscale_layer" if used == "downscale_layer" else "downscale_layer"
+    cin = 512 if unused == "upscale_layer" else 2048
+    out[f"{unused}.weight"] = torch.zeros(cin, 768, 3, 3)
+    out[f"{unused}.bias"] = torch.zeros(768)
+    export_t5_encoder(out, params["lang_model"], num_t5_layers,
+                      prefix="lang_model",
+                      shared_key="lang_model.embed_tokens.weight")
+    export_sga_stack(out, params["sga_modules"], num_attention_blocks)
+    export_attention_pooler(out, params["attention_pooler"])
+    export_linear(out, params["classification_layer"], "classification_layer")
+    return out
