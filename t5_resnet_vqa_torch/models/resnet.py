@@ -11,7 +11,7 @@ Activations run in ``channels_last``: the model hands the backbone an NHWC
 batch viewed as NCHW, and the convolutions keep that layout, so
 ``x.permute(0, 2, 3, 1)`` gives the bottleneck kernel a contiguous NHWC
 tensor at no cost. With ``use_kernel``, the ResNet-50 blocks of
-``FUSED_STAGES`` go through ``ops.bottleneck.fused_bottleneck`` (the
+``FUSED_STAGES`` go through ``ops.bottleneck.fused_bottleneck_packed`` (the
 counterpart of ``fused_backbone_apply``, resnet.py:174, at its default
 ``fuse_stages``), everything else through the modules.
 """
@@ -23,7 +23,11 @@ from typing import List
 import torch
 from torch import nn
 
-from ..ops.bottleneck import fold_conv_bn, fused_bottleneck
+from ..ops.bottleneck import (
+    fold_conv_bn,
+    fused_bottleneck_packed,
+    pack_operands,
+)
 
 # (block type, stage depths, stage base widths, expansion)
 _VARIANTS = {
@@ -95,7 +99,14 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """v1.5 bottleneck: 1x1 reduce, 3x3 (carries the stride), 1x1 expand."""
+    """v1.5 bottleneck: 1x1 reduce, 3x3 (carries the stride), 1x1 expand.
+
+    The fused path's operands (BN folded into the convolutions, packed for
+    the kernel) are computed when the weights are set, not per forward: at
+    construction, after ``load_state_dict`` (a post-hook), after a dtype or
+    device move (``_apply``), and by ``refresh_fused_operands`` after any
+    other in-place change to the weights (``init_weights`` calls it).
+    """
 
     def __init__(self, cin: int, width: int, stride: int = 1,
                  has_downsample: bool = False):
@@ -109,6 +120,21 @@ class Bottleneck(nn.Module):
         self.bn3 = FrozenBatchNorm(width * 4)
         self.downsample = (_downsample(cin, width * 4, stride)
                            if has_downsample else None)
+        self.refresh_fused_operands()
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module.refresh_fused_operands())
+
+    def _apply(self, fn, recurse=True):
+        out = super()._apply(fn, recurse)
+        self.refresh_fused_operands()
+        return out
+
+    def refresh_fused_operands(self) -> None:
+        """Fold and pack the fused path's operands from the weights as they
+        are now, in the weights' dtype."""
+        with torch.no_grad():
+            self.fused = pack_operands(
+                *self.fused_operands(self.conv1.weight.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x)))
@@ -132,9 +158,9 @@ class Bottleneck(nn.Module):
         return ops
 
     def forward_fused(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        """The same block on NHWC input through the fused kernel."""
-        return fused_bottleneck(x_nhwc, *self.fused_operands(x_nhwc.dtype),
-                                stride=self.stride)
+        """The same block on NHWC input (the weights' dtype) through the
+        fused kernel, with the operands packed when the weights were set."""
+        return fused_bottleneck_packed(x_nhwc, self.fused, stride=self.stride)
 
 
 class ResNetBackbone(nn.Module):

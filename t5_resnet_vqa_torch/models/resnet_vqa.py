@@ -34,14 +34,20 @@ from ..ops import (
     log_softmax_nll,
 )
 from .image_input import finalize_image_input
-from .resnet import FrozenBatchNorm, ResNetBackbone, resnet_out_channels
+from .resnet import (
+    Bottleneck,
+    FrozenBatchNorm,
+    ResNetBackbone,
+    resnet_out_channels,
+)
 from .t5 import T5Config, T5Encoder
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``, in module order: linears N(0, 0.02),
     convolutions fan-in normal, embeddings N(0, 1), and frozen BatchNorms
-    with non-trivial statistics so that the BN fold is exercised."""
+    with non-trivial statistics so that the BN fold is exercised. The
+    bottlenecks' fused operands are folded again from the new weights."""
     g = generator
     with torch.no_grad():
         for m in model.modules():
@@ -63,6 +69,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.normal_(0.0, 0.1, generator=g)
                 m.running_mean.normal_(0.0, 0.1, generator=g)
                 m.running_var.uniform_(0.5, 1.5, generator=g)
+    for m in model.modules():
+        if isinstance(m, Bottleneck):
+            m.refresh_fused_operands()
 
 
 class ResnetVQAModel(nn.Module):

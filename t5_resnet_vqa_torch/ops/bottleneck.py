@@ -11,11 +11,19 @@ the function computes, in NHWC::
     t2  = relu(im2col3x3(t1, stride) @ w2 + b2)
     out = relu(t2 @ w3 + b3 + (x[::s, ::s] @ wd + bd  or  x))
 
-For a CUDA tensor ``fused_bottleneck`` launches ``csrc/bottleneck.cu`` (one
-thread block per 4x16 output tile of one image, t1 and t2 kept in shared
-memory; see the source note), stride 2 with downsample included. For a CPU
-tensor it returns ``bottleneck_reference``. There is no fallback: a CUDA
-tensor the kernel does not take raises. Forward only: the tower is frozen.
+For a CUDA tensor ``fused_bottleneck`` launches ``csrc/bottleneck.cu``
+(persistent thread blocks walking 8x16 output tiles, t1 and t2 kept in
+shared memory, weights streamed through a ring of bulk copies; see the
+source note), stride 2 with downsample included. For a CPU tensor it
+returns ``bottleneck_reference``. There is no fallback: a CUDA tensor the
+kernel does not take raises. Forward only: the tower is frozen.
+
+The bf16 kernel reads its weights packed: ``pack_operands`` cuts each
+folded weight into the 64-row chunks the kernel streams, in the order it
+streams them, each row padded with 8 zeros as in shared memory, so that a
+chunk is one contiguous bulk copy. ``Bottleneck`` (``models/resnet.py``)
+packs once when its weights are set and calls ``fused_bottleneck_packed``;
+``fused_bottleneck`` packs on every call. fp32 operands stay unpacked.
 
 ``launches`` counts kernel launches.
 """
@@ -23,6 +31,7 @@ tensor the kernel does not take raises. Forward only: the tower is frozen.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -32,6 +41,10 @@ from . import kernel_build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+KC = 64          # K rows per chunk (csrc KC)
+NMAX = 128       # conv3 / downsample columns per chunk (csrc NMAX)
+PAD = 8          # zeros after every chunk row (csrc kPad)
 
 
 def fold_conv_bn(conv_weight: torch.Tensor, scale: torch.Tensor,
@@ -43,6 +56,44 @@ def fold_conv_bn(conv_weight: torch.Tensor, scale: torch.Tensor,
     w = conv_weight.float().permute(2, 3, 1, 0) * scale.float()
     return (w.to(dtype).reshape(-1, w.shape[-1]).contiguous(),
             bias.float().contiguous())
+
+
+def pack_weight(w: torch.Tensor, n: int) -> torch.Tensor:
+    """[K, N] -> [N / n, K / 64, 64, n + 8]: column block j, then 64-row
+    chunk c, each row followed by 8 zeros. Flattened, it is the order in
+    which the kernel streams the chunks (w1, w2: n = N; w3, wd: n = 128)."""
+    K, N = w.shape
+    chunks = w.reshape(K // KC, KC, N // n, n).permute(2, 0, 1, 3)
+    return torch.nn.functional.pad(chunks, (0, PAD)).contiguous()
+
+
+def unpack_weight(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_weight``."""
+    nb, kc, rows, n = packed.shape
+    n -= PAD
+    return packed[..., :n].permute(1, 2, 0, 3).reshape(kc * rows, nb * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedBottleneck:
+    """A block's folded operands, ``plain`` as ``fold_conv_bn`` gives them
+    (w1, b1, w2, b2, w3, b3, wd, bd; wd and bd None without a downsample),
+    and ``kernel``: the same in the kernel's layout (bf16 weights packed,
+    fp32 ones as they are)."""
+    plain: Tuple[Optional[torch.Tensor], ...]
+    kernel: Tuple[Optional[torch.Tensor], ...]
+
+
+def pack_operands(w1, b1, w2, b2, w3, b3, wd=None, bd=None
+                  ) -> PackedBottleneck:
+    """``fold_conv_bn``'s operands of one block, with their kernel layout."""
+    plain = (w1, b1, w2, b2, w3, b3, wd, bd)
+    if w1.dtype != torch.bfloat16:
+        return PackedBottleneck(plain, plain)
+    kernel = (pack_weight(w1, w1.shape[1]), b1, pack_weight(w2, w2.shape[1]),
+              b2, pack_weight(w3, NMAX), b3,
+              None if wd is None else pack_weight(wd, NMAX), bd)
+    return PackedBottleneck(plain, kernel)
 
 
 def bottleneck_reference(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
@@ -78,6 +129,7 @@ def bottleneck_reference(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
 
 
 def _check(x, w1, b1, w2, b2, w3, b3, wd, bd, stride) -> None:
+    """Checks the plain operands (``PackedBottleneck.plain``)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_bottleneck takes float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -117,14 +169,12 @@ def _check(x, w1, b1, w2, b2, w3, b3, wd, bd, stride) -> None:
                          "Cin == Cout")
 
 
-def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, stride) -> torch.Tensor:
+def _launch(x, packed: PackedBottleneck, stride) -> torch.Tensor:
     global launches
-    lib = kernel_build.load("bottleneck")
-    fn = lib.bottleneck_forward
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_build.function("bottleneck", "bottleneck_forward", _ARGTYPES)
+    w1, b1, w2, b2, w3, b3, wd, bd = packed.kernel
     B, H, W, Cin = x.shape
-    Cw, Cout = w1.shape[1], w3.shape[1]
+    Cw, Cout = packed.plain[0].shape[1], packed.plain[4].shape[1]
     out = torch.empty((B, H // stride, W // stride, Cout), dtype=x.dtype,
                       device=x.device)
     has_ds = wd is not None
@@ -153,4 +203,16 @@ def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
         raise ValueError(f"fused_bottleneck runs on cuda or cpu, "
                          f"not {x.device}")
     _check(x, w1, b1, w2, b2, w3, b3, wd, bd, stride)
-    return _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, stride)
+    return _launch(x, pack_operands(w1, b1, w2, b2, w3, b3, wd, bd), stride)
+
+
+def fused_bottleneck_packed(x: torch.Tensor, packed: PackedBottleneck,
+                            stride: int = 1) -> torch.Tensor:
+    """``fused_bottleneck`` with operands packed once by ``pack_operands``."""
+    if x.device.type == "cpu":
+        return bottleneck_reference(x, *packed.plain, stride=stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bottleneck runs on cuda or cpu, "
+                         f"not {x.device}")
+    _check(x, *packed.plain, stride)
+    return _launch(x, packed, stride)

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/<name>-<hash>.so`` inside the package, at first use. The hash
-covers the source and the compiler flags, so an edited source builds anew
-and an unchanged one is reused. ``build`` starts one ``nvcc`` per missing
+covers the source, every shared header ``csrc/*.cuh`` and the compiler
+flags, so an edited source or header builds anew and an unchanged one is
+reused. ``function`` returns a library's entry point with its ctypes
+signature set once, at load time. ``build`` starts one ``nvcc`` per missing
 library, all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module, and a
@@ -18,7 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -28,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -42,8 +45,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -81,6 +87,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu``'s library, returning a C int (a CUDA
+    error code), with ``argtypes`` set on its first use only."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn
 
 
 def check(status: int, what: str) -> None:

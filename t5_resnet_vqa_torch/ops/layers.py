@@ -8,7 +8,9 @@ reference's ``state_dict`` keys (``mhatt1.linear_v``, ``norm1.norm``,
 The attention core routes to the hand-written kernel (``ops/attention.py``)
 exactly where the JAX package routes to its Pallas kernel (layers.py:68):
 the flag is on, there is no mask and no dropout. The wrapper then takes the
-kernel for CUDA tensors and its plain version for CPU tensors.
+kernel for CUDA tensors and its plain version for CPU tensors. The kernel
+reads the head views of the projections in place and returns a view whose
+head merge in ``MultiHeadAttention.forward`` is a free reshape.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Scaled dot-product attention over [B, H, Sq, D] / [B, H, Sk, D];
     ``mask`` marks masked positions with True."""
     if use_kernel and mask is None and dropout_p == 0.0:
-        return fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        return fused_attention(q, k, v)
     return attention_reference(q, k, v, mask, dropout_p)
 
 

@@ -66,12 +66,43 @@ def test_attention_kernel_matches_plain(cuda, dtype, name, B, H, Sq, Sk, D):
     assert _rel_err(got, want) <= ATT_TOL[name]
 
 
+@pytest.mark.parametrize("dtype,name", DTYPES)
+@pytest.mark.parametrize("B,H,Sq,Sk,D", [
+    (4, 8, 16, 64, 96),      # SGA: the head views of the projections
+    (2, 12, 197, 197, 64),   # ViT
+    (3, 4, 20, 20, 8),       # D=8, Sk not a multiple of 16
+    (2, 2, 33, 45, 40),      # D not a multiple of 16, three query tiles
+])
+def test_attention_kernel_reads_head_views(cuda, dtype, name, B, H, Sq, Sk,
+                                           D):
+    """q, k, v as [B, S, H*D] projections split into heads without a copy;
+    the output is the [B, H, Sq, D] view of a contiguous [B, Sq, H, D]."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def heads(s):
+        x = torch.randn(B, s, H * D, device=cuda, generator=g).to(dtype)
+        return x.reshape(B, s, H, D).transpose(1, 2)
+
+    q, k, v = heads(Sq), heads(Sk), heads(Sk)
+    assert not q.is_contiguous()
+    before = A.launches
+    got = A.fused_attention(q, k, v)
+    want = A.attention_reference(q, k, v)
+    assert A.launches == before + 1
+    assert got.shape == (B, H, Sq, D) and got.transpose(1, 2).is_contiguous()
+    assert _rel_err(got, want) <= ATT_TOL[name]
+
+
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 4, 130, device=cuda)          # D > 128
     with pytest.raises(ValueError):
         A.fused_attention(q, q, q)
     q = torch.zeros(1, 1, 4, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
+        A.fused_attention(q, q, q)
+    # a view whose rows (14 bf16 = 28 bytes apart) are not 16-byte aligned
+    q = torch.zeros(1, 1, 4, 14, device=cuda, dtype=torch.bfloat16)[..., :6]
+    with pytest.raises(ValueError):
         A.fused_attention(q, q, q)
 
 
@@ -83,6 +114,8 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     (32, 512, 128, 1, False),   # stage 1 blocks 1-3
     (20, 256, 64, 1, False),    # partial output tiles
     (18, 256, 128, 2, True),    # partial tiles at stride 2
+    (12, 64, 64, 1, True),      # one partial 8x16 tile per image
+    (40, 256, 128, 2, True),    # 20x20 output: partial 4x16 tiles
 ])
 def test_bottleneck_kernel_matches_plain(cuda, dtype, name, H, Cin, width,
                                          stride, ds):
@@ -101,6 +134,22 @@ def test_bottleneck_kernel_matches_plain(cuda, dtype, name, H, Cin, width,
     assert got.shape == (2, H // stride, H // stride, 4 * width)
     assert _rel_err(got, want) <= BLOCK_TOL[name]
     assert _rel_err(got, module) <= BLOCK_TOL[name]
+
+
+@pytest.mark.parametrize("dtype,name", DTYPES)
+def test_bottleneck_packed_operands_match_plain_ones(cuda, dtype, name):
+    """The module's operands, packed once, give the kernel the same result
+    as the operands folded and packed anew on the call."""
+    block = Bottleneck(256, 128, 2, True)
+    init_weights(block, torch.Generator().manual_seed(6))
+    block = block.to(cuda, dtype).eval()
+    x = torch.randn(3, 16, 16, 256, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(7))
+    x = x.to(dtype)
+    with torch.inference_mode():
+        packed = block.forward_fused(x)
+        fresh = K.fused_bottleneck(x, *block.fused_operands(dtype), stride=2)
+    torch.testing.assert_close(packed, fresh, rtol=0, atol=0)
 
 
 def test_model_with_kernels_matches_model_without(cuda):
