@@ -20,6 +20,9 @@ Phases (each raises on failure; nothing is caught):
               module packed once (``Bottleneck.fused``), as on the main
               path, and its line gives the weight bytes the design streams
               from L2 per launch (``weight_stream_mb``, from the shapes).
+              At the SGA shapes the attention kernel's backward (the VJP of
+              the plain version) is held against autograd of the plain
+              version on head views, and timed (``bwd_ms``).
 3. serve   -- the port's main path at full width: ResNet-50 + T5-base
               (12 layers, d_model 768) + 3 SGA blocks (H=8, D=96), 170
               answers, bf16, random weights from a seeded generator, behind
@@ -36,14 +39,28 @@ Phases (each raises on failure; nothing is caught):
               of the forward alone) and profiles one forward of each
               (device time and kernel launches of the vision tower, the
               text tower and the forward, and the device's idle share).
+4. train   -- the training path at the same width, B=64, bf16 compute
+              with fp32 master weights: one epoch (8 train and 2 test
+              batches) through ``VQATrainer`` with the reference config's
+              optimizer and dropout, checking finite losses, launches per
+              step (7 bottleneck and 0 attention per train step, 6 and 7
+              per eval forward), the WUPS line, the validation predictions
+              and a strict reload of ``best-model.pt``; kernels on against
+              off at dropout 0 (5 bf16 steps; 3 fp32 steps on a repeated
+              batch, whose loss must fall; 6 attention launches per step);
+              then train-step timings with the kernels on and off in turns
+              and a profile of each (device time and launches of the
+              tower, the text tower, the forward and the step; idle share).
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 
 In the kernels line, ``launches`` is the count over the three served
-forwards; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per
-forward (``bound_share`` is ``bound_ms / ms``, as on each kernel line):
+forwards (``train_epoch_launches`` over the training epoch,
+``train_launches_per_step`` with the production dropout and at 0);
+``ms``, ``plain_ms``, ``bound_ms``, ``library_ms`` and attention's
+``bwd_ms`` are per forward (``bound_share`` is ``bound_ms / ms``):
 the bf16 times of the kernel phase summed over the shapes one
 forward launches (attention: 5 at Sk=16 and 1 at Sk=64; bottleneck: the
 seven blocks of stages 0 and 1); ``max_abs_err`` is the largest of those
@@ -68,12 +85,36 @@ ATT_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 BLOCK_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOGPROB_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
+DEVICE = "cuda"
 BATCH = 64
 CHUNKS = 3
 ROUNDS = 20            # timed ask_batch rounds per configuration
 PROFILE_TRIES = 3
 ANSWERS = 170          # the DAQUAR answer-space size
 IMAGE = 256
+
+TRAIN_BATCHES = 8      # the train phase's epoch: 8 train and 2 test batches
+TEST_BATCHES = 2
+DISTINCT_IMAGES = 96   # per split; DAQUAR asks several questions per image
+BF16_STEPS = 5         # kernels on against off, dropout 0
+FP32_STEPS = 3
+TRAIN_ROUNDS = 20      # timed train steps per configuration, in turns
+# kernels on against off, same weights and batches, dropout 0. bf16: the
+# mean NLL may differ by what the forward's log-probs may (LOGPROB_TOL, the
+# serve phase's: t1/t2 and the probabilities re-rounded to bf16 in other
+# places), and the updates that follow differ by as little. fp32, no TF32:
+# losses 1e-4 relative (sums in another order); the difference of the
+# trainable parameters within 1e-2 of their update (L2 over all of them):
+# AdamW divides each update by the root of its second moment, so an element
+# whose gradient is near 0 moves by its LR in the direction of its sign,
+# which a sum in another order can flip. Each flip adds 2 LR; 1e-2 leaves
+# room for thousands of flips among ~150 M parameters, while a module with
+# a wrong gradient moves a whole share of the update.
+TRAIN_LOSS_TOL = {"bfloat16": LOGPROB_TOL["bfloat16"], "float32": 1e-4}
+UPDATE_TOL = 1e-2
+# the comparisons' LRs: small enough for 5 bf16 steps to stay comparable,
+# large enough (the classifier's) for the loss on a repeated batch to fall
+PARITY_LRS = {"lm_encoder_lr": 1e-4, "fusion_lr": 1e-4, "classifier_lr": 1e-3}
 
 
 def emit(record: dict) -> None:
@@ -161,14 +202,15 @@ def phase_attention(torch):
 
     per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "bytes_ms": 0.0, "ops_ms": 0.0,
-                   "library_ms": 0.0, "max_abs_err": 0.0}
+                   "library_ms": 0.0, "max_abs_err": 0.0, "bwd_ms": 0.0,
+                   "plain_bwd_ms": 0.0, "bwd_max_abs_err": 0.0}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, B, H, Sq, Sk, D, n_fwd in ATTENTION_CASES:
-            g = torch.Generator(device="cuda").manual_seed(1)
-            q = torch.randn(B, H, Sq, D, device="cuda", generator=g).to(dtype)
-            k = torch.randn(B, H, Sk, D, device="cuda", generator=g).to(dtype)
-            v = torch.randn(B, H, Sk, D, device="cuda", generator=g).to(dtype)
+            g = torch.Generator(device=DEVICE).manual_seed(1)
+            q = torch.randn(B, H, Sq, D, device=DEVICE, generator=g).to(dtype)
+            k = torch.randn(B, H, Sk, D, device=DEVICE, generator=g).to(dtype)
+            v = torch.randn(B, H, Sk, D, device=DEVICE, generator=g).to(dtype)
             # the main path's inputs: head views of [B, S, H*D] projections
             qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
                           for t in (q, k, v))
@@ -192,22 +234,61 @@ def phase_attention(torch):
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             t_bytes, t_ops = bound_terms(nbytes, 4.0 * B * H * Sq * Sk * D,
                                          dtype_name)
-            emit({"phase": "kernel", "kernel": "attention", "case": name,
-                  "dtype": dtype_name, "shape": [B, H, Sq, Sk, D],
-                  "max_abs_err": abs_err, "rel_err": rel,
-                  "tol": ATT_TOL[dtype_name], "ms": ms,
-                  "ms_head_views": views_ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-                  "bound_share": max(t_bytes, t_ops) / ms,
-                  "bound_by": bound_by(t_bytes, t_ops)})
+            line = {"phase": "kernel", "kernel": "attention", "case": name,
+                    "dtype": dtype_name, "shape": [B, H, Sq, Sk, D],
+                    "max_abs_err": abs_err, "rel_err": rel,
+                    "tol": ATT_TOL[dtype_name], "ms": ms,
+                    "ms_head_views": views_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                    "bound_share": max(t_bytes, t_ops) / ms,
+                    "bound_by": bound_by(t_bytes, t_ops)}
+            if n_fwd:           # the SGA shapes: the training path's too
+                line.update(attention_backward(torch, A, B, H, Sq, Sk, D,
+                                               dtype, dtype_name, name))
+            emit(line)
             if dtype_name == "bfloat16" and n_fwd:
                 per_forward["ms"] += n_fwd * ms
                 per_forward["plain_ms"] += n_fwd * plain_ms
                 per_forward["library_ms"] += n_fwd * lib_ms
+                per_forward["bwd_ms"] += n_fwd * line["bwd_ms"]
+                per_forward["plain_bwd_ms"] += n_fwd * line["plain_bwd_ms"]
                 add_bound(per_forward, n_fwd, t_bytes, t_ops)
                 per_forward["max_abs_err"] = max(per_forward["max_abs_err"],
                                                  abs_err)
+                per_forward["bwd_max_abs_err"] = max(
+                    per_forward["bwd_max_abs_err"], line["bwd_max_abs_err"])
     return per_forward
+
+
+def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
+    """The kernel's backward (the VJP of the plain version) through the
+    head views of [B, S, H*D] projections, as the SGA blocks hand them over,
+    against ``torch.autograd.grad`` of the plain version on the same inputs;
+    with the device ms of each backward (the graph kept and run again)."""
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    projections = [torch.randn(B, s, H * D, device=DEVICE,
+                               generator=g).to(dtype) for s in (Sq, Sk, Sk)]
+    grad_out = torch.randn(B, H, Sq, D, device=DEVICE, generator=g).to(dtype)
+
+    def graph(fn):
+        leaves = [p.clone().requires_grad_() for p in projections]
+        out = fn(*(x.reshape(B, -1, H, D).transpose(1, 2) for x in leaves))
+        return lambda: torch.autograd.grad(out, leaves, grad_out,
+                                           retain_graph=True)
+
+    kernel_bwd, plain_bwd = graph(A.fused_attention), \
+        graph(A.attention_reference)
+    abs_err = rel = 0.0
+    for got, want in zip(kernel_bwd(), plain_bwd()):
+        a, r = rel_err(got, want)
+        if not r <= ATT_TOL[dtype_name]:
+            raise AssertionError(
+                f"attention backward {name} {dtype_name}: max-abs error "
+                f"{a} ({r} of max|ref|) > {ATT_TOL[dtype_name]}")
+        abs_err, rel = max(abs_err, a), max(rel, r)
+    return {"bwd_max_abs_err": abs_err, "bwd_rel_err": rel,
+            "bwd_ms": device_ms(torch, kernel_bwd),
+            "plain_bwd_ms": device_ms(torch, plain_bwd)}
 
 
 BLOCK_CASES = [    # name, H, Cin, width, stride, downsample, launches/forward
@@ -300,15 +381,18 @@ def streamed_weight_bytes(H, cin, cw, stride, ds, itemsize) -> float:
     return float(tiles * per_tile)
 
 
-def _build_model(torch, dtype, use_kernels):
+def _build_model(torch, dtype, use_kernels, dropout=True):
+    """The flagship at full width, weights from a generator seeded with 0;
+    ``dropout=False`` sets the T5 and SGA dropout rates to 0."""
     from t5_resnet_vqa_torch.models import ResnetVQAModel, T5Config
     from t5_resnet_vqa_torch.ops import AttentionConfig
 
+    rate = {} if dropout else {"dropout_rate": 0.0}
     return ResnetVQAModel(
-        ANSWERS, vision_model_name="resnet50", t5_config=T5Config.t5_base(),
-        num_attention_blocks=3, sga_config=AttentionConfig(),
-        use_kernels=use_kernels, dtype=dtype, device="cuda",
-        generator=torch.Generator().manual_seed(0))
+        ANSWERS, vision_model_name="resnet50",
+        t5_config=T5Config(**rate), num_attention_blocks=3,
+        sga_config=AttentionConfig(**rate), use_kernels=use_kernels,
+        dtype=dtype, device=DEVICE, generator=torch.Generator().manual_seed(0))
 
 
 def phase_serve(torch, card):
@@ -497,9 +581,12 @@ def profile_device(torch, fn, iters: int = 1) -> dict:
                 fn()
             end.record()
             torch.cuda.synchronize()
+        # a record_function range (the optimizer's step) also has a device
+        # row, spanning its kernels: it is not a kernel and is left out
         kernels = sorted(((e.self_device_time_total, e.count, e.key[:90])
                           for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)
                           and e.self_device_time_total > 0), reverse=True)
         busy_ms = sum(k[0] for k in kernels) / 1e3
         if busy_ms > 0:
@@ -511,6 +598,363 @@ def profile_device(torch, fn, iters: int = 1) -> dict:
             "launches": sum(k[1] for k in kernels) / iters,
             "elapsed_ms": start.elapsed_time(end) / iters,
             "kernels": kernels}
+
+
+def train_data(n_train, n_test):
+    """(answers, train samples, test samples, load_images): DAQUAR-shaped
+    questions with one or two answers each, and seeded uint8 images standing
+    in for the image files (the card's machine has no decoder)."""
+    from t5_resnet_vqa_torch.data import Annotation, Question, Sample
+
+    answers = [f"answer{i:03d}" for i in range(ANSWERS)]
+    rng = np.random.default_rng(1)
+    objects = ["table", "chair", "lamp", "sofa", "bottle", "book", "cup"]
+    images = {}
+
+    def split(name, n):
+        samples = []
+        for i in range(n):
+            path = f"{name}_{i % DISTINCT_IMAGES}.png"
+            if path not in images:
+                images[path] = rng.integers(0, 256, (IMAGE, IMAGE, 3),
+                                            dtype=np.uint8)
+            obj = objects[int(rng.integers(len(objects)))]
+            picks = [answers[int(rng.integers(ANSWERS))]
+                     for _ in range(1 + int(rng.integers(2)))]
+            samples.append(Sample(
+                Question(f"what is on the {obj} number {i % 17}",
+                         f"{name}_{i}_Question", path),
+                Annotation(f"{name}__{i}_Question", path, picks), path))
+        return samples
+
+    def load_images(paths):
+        return np.stack([images[p] for p in paths])
+
+    return (answers, split("train", n_train * BATCH),
+            split("test", n_test * BATCH), load_images)
+
+
+def train_config(output_dir):
+    """The flagship's training configuration (the reference config's
+    optimizer, schedule and callbacks) at B=64, bf16 compute with fp32
+    master weights; threshold -1 makes every epoch save the best model."""
+    from t5_resnet_vqa_torch.core import Config
+
+    cfg = Config.from_json(os.path.join(REPO, "vit_daquar_config.json"))
+    cfg.model.vision_model_name = "resnet50"
+    cfg.model.compute_dtype = "bfloat16"
+    dk, tk = cfg.dataset, cfg.trainer
+    dk.train_batch_size = dk.test_batch_size = BATCH
+    dk.image_size = IMAGE
+    dk.uint8_wire_images = True
+    dk.use_native_preprocessor = False
+    tk.epochs = 1
+    tk.output_dir = output_dir
+    tk.device = DEVICE
+    tk.load_from_checkpoint = False
+    cfg.callbacks.threshold = -1.0
+    return cfg.validate()
+
+
+def phase_train(torch, card):
+    """The training path at full width: one epoch through ``VQATrainer``
+    (production dropout, bf16 compute), kernels on against off at dropout 0
+    (bf16 and fp32), and train-step timings with the kernels on and off in
+    turns. Returns the launch counts of the epoch and per step."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.data import DataLoader, to_device
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train import VQATrainer
+    from t5_resnet_vqa_torch.train.trainer import (
+        _device_batch,
+        build_collates,
+        prepare_model,
+    )
+
+    answers, train_ds, test_ds, load_images = train_data(TRAIN_BATCHES,
+                                                         TEST_BATCHES)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg = train_config(out_dir)
+
+        # (a) one epoch through the entry point, counts set to 0 just before
+        trainer = VQATrainer(_build_model(torch, torch.float32, True), cfg,
+                             answers, train_ds, test_ds)
+        for loader in (trainer.train_dataloader, trainer.test_dataloader):
+            loader.collate_fn.load_images = load_images
+        calls = {"train": [], "eval": []}
+
+        def counted(kind, fn):
+            def run(batch):
+                a0, k0 = A.launches, K.launches
+                out = fn(batch)
+                calls[kind].append((A.launches - a0, K.launches - k0,
+                                    out[0]))
+                return out
+            return run
+
+        eval_step = trainer.eval_step
+        trainer.train_step = counted("train", trainer.train_step)
+        trainer.eval_step = counted("eval", eval_step)
+        A.launches = 0
+        K.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        epoch_s = time.perf_counter() - t0
+        launches = {"attention": A.launches, "bottleneck": K.launches}
+        per_step = {kind: [c[:2] for c in calls[kind]] for kind in calls}
+        if per_step != {"train": [(0, 7)] * TRAIN_BATCHES,
+                        "eval": [(6, 7)] * TEST_BATCHES}:
+            raise AssertionError(f"launches (attention, bottleneck) per "
+                                 f"step {per_step}: expected (0, 7) per "
+                                 f"train step, (6, 7) per eval forward")
+        losses = torch.stack([c[2] for c in calls["train"]]).float().cpu()
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"train losses {losses.tolist()}")
+        with open(trainer.logger.log_path) as f:
+            log = f.read()
+        for line in ("Average WUPS Score", "Average Validation Loss",
+                     "Saving new best-model"):
+            if line not in log:
+                raise AssertionError(f"the training log lacks {line!r}")
+        with open(os.path.join(out_dir, "validation_predictions",
+                               "0_validation_predictions.json")) as f:
+            predictions = json.load(f)
+        if len(predictions) != TEST_BATCHES * BATCH:
+            raise AssertionError(f"{len(predictions)} validation predictions")
+
+        # best-model.pt into a fresh model: the same eval log-probs
+        state = torch.load(os.path.join(out_dir, "model_checkpoints",
+                                        "best-model.pt"),
+                           map_location="cpu", weights_only=True)
+        fresh = prepare_model(_build_model(torch, torch.float32, True),
+                              torch.device(DEVICE), torch.bfloat16)
+        fresh.load_state_dict(state, strict=True)
+        test_batch = _device_batch(to_device(
+            next(iter(trainer.test_dataloader)), torch.device(DEVICE)))
+        with torch.inference_mode(), torch.autocast(DEVICE,
+                                                    dtype=torch.bfloat16):
+            got = fresh.eval()(**test_batch)[0]
+            want = trainer.model.eval()(**test_batch)[0]
+        reload_diff = float((got - want).abs().max())
+        if not reload_diff <= 1e-4:
+            raise AssertionError(f"best-model.pt reloaded gives log-probs "
+                                 f"{reload_diff} away")
+        emit({"phase": "train_epoch", "card": card,
+              "model": "resnet50 + t5-base + 3xSGA", "answers": ANSWERS,
+              "dtype": "bfloat16 compute, fp32 master weights",
+              "dropout": "production (T5 0.1, SGA 0.1)", "batch": BATCH,
+              "train_steps": TRAIN_BATCHES, "eval_forwards": TEST_BATCHES,
+              "launches": launches,
+              "launches_per_train_step": {"attention": 0, "bottleneck": 7},
+              "launches_per_eval_forward": {"attention": 6,
+                                            "bottleneck": 7},
+              "losses": losses.tolist(), "epoch_s": epoch_s,
+              "best_model_reload_logprob_diff": reload_diff,
+              "validation_predictions": len(predictions)})
+        del trainer, fresh, state, got, want
+        torch.cuda.empty_cache()
+
+        # the same device batches for the comparisons and the timings
+        collate, _ = build_collates(cfg.dataset, answers, seed=0)
+        collate.load_images = load_images
+        batches = [_device_batch(to_device(b, torch.device(DEVICE)))
+                   for b, _ in zip(DataLoader(train_ds, collate, BATCH),
+                                   range(BF16_STEPS))]
+        parity = train_parity(torch, cfg, batches, card)
+        train_timing(torch, cfg, batches[0], card, dropout=True)
+        emit({"phase": "train_parity", "card": card, **parity})
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"epoch": launches, "per_step": {
+        "attention": {"production_dropout": 0, "dropout_0": 6},
+        "bottleneck": {"production_dropout": 7, "dropout_0": 7}}}
+
+
+def _steps(torch, cfg, model, dtype, batches, total):
+    """Run ``batches`` through the port's train step (the trainer's
+    optimizer over ``total`` steps): losses and launches per step."""
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train import build_optimizer, make_train_step
+
+    optimizer, scheduler, _, trainable = build_optimizer(
+        model, cfg.optimizer, cfg.lr_scheduler, total,
+        frozen_modules=model.frozen_modules())
+    step = make_train_step(model, optimizer, scheduler, trainable,
+                           cfg.trainer.gradient_clipping, dtype)
+    losses, counts = [], []
+    for batch in batches:
+        a0, k0 = A.launches, K.launches
+        losses.append(float(step(batch)[0]))
+        counts.append((A.launches - a0, K.launches - k0))
+    return losses, counts
+
+
+def _parity_pair(torch, dtype):
+    from t5_resnet_vqa_torch.train.trainer import prepare_model
+
+    return {flag: prepare_model(
+        _build_model(torch, torch.float32, flag, dropout=False),
+        torch.device(DEVICE), dtype).train() for flag in (True, False)}
+
+
+def train_parity(torch, cfg, batches, card):
+    """Kernels on against off at dropout 0, same weights and batches: bf16
+    over BF16_STEPS batches (then timed, in turns), fp32 (no TF32) over one
+    batch repeated FP32_STEPS times, whose loss must fall."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    for key, lr in PARITY_LRS.items():
+        setattr(cfg.optimizer, key, lr)
+    out = {"bf16_steps": BF16_STEPS, "fp32_steps": FP32_STEPS,
+           "lrs": PARITY_LRS}
+    for dtype_name, n in (("bfloat16", BF16_STEPS), ("float32", FP32_STEPS)):
+        dtype = getattr(torch, dtype_name)
+        models = _parity_pair(torch, dtype)
+        run = batches if dtype_name == "bfloat16" else [batches[0]] * n
+        before = {k: v.detach().clone() for k, v in
+                  models[True].named_parameters()}
+        res = {flag: _steps(torch, cfg, m, dtype, run, n)
+               for flag, m in models.items()}
+        (on, on_counts), (off, off_counts) = res[True], res[False]
+        if on_counts != [(6, 7)] * n or off_counts != [(0, 0)] * n:
+            raise AssertionError(f"{dtype_name} launches per step: kernels "
+                                 f"on {on_counts}, off {off_counts}")
+        if not all(np.isfinite(on + off)):
+            raise AssertionError(f"{dtype_name} losses {on} / {off}")
+        tol = TRAIN_LOSS_TOL[dtype_name]
+        diffs = [abs(a - b) if dtype_name == "bfloat16"
+                 else abs(a - b) / abs(b) for a, b in zip(on, off)]
+        if not max(diffs) <= tol:
+            raise AssertionError(f"{dtype_name} losses on {on} off {off}: "
+                                 f"differ by {max(diffs)} > {tol}")
+        line = {"losses_on": on, "losses_off": off,
+                "loss_diff": max(diffs), "loss_tol": tol}
+        if dtype_name == "float32":
+            if not on[-1] < on[0]:
+                raise AssertionError(f"the loss on a repeated batch did not "
+                                     f"fall: {on}")
+            off_params = dict(models[False].named_parameters())
+            num = den = 0.0
+            max_diff = 0.0
+            for name, p in models[True].named_parameters():
+                d = (p.detach() - off_params[name].detach()).double()
+                u = (p.detach() - before[name]).double()
+                num += float((d * d).sum())
+                den += float((u * u).sum())
+                max_diff = max(max_diff, float(d.abs().max()))
+            ratio = (num / den) ** 0.5
+            if not ratio <= UPDATE_TOL:
+                raise AssertionError(f"fp32 parameters on/off differ by "
+                                     f"{ratio} of their update > "
+                                     f"{UPDATE_TOL}")
+            line.update({"update_diff_over_update": ratio,
+                         "update_tol": UPDATE_TOL,
+                         "param_max_abs_diff": max_diff})
+        else:           # the training path with attention on the kernel
+            train_timing(torch, cfg, batches[0], card, dropout=False,
+                         models=models, rounds=TRAIN_ROUNDS // 2)
+        out[dtype_name] = line
+        del models, res, before
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_timing(torch, cfg, batch, card, dropout=True, models=None,
+                 rounds=TRAIN_ROUNDS):
+    """Median train-step ms with the kernels on and off in turns (CUDA
+    events; each step ends in a synchronisation that reads the loss), and
+    each one's device busy ms and kernel launches per step (the vision tower, the text tower, the forward, the whole step;
+    backward + optimizer = step - forward) and the device's idle share over
+    10 profiled steps. bf16 compute, ``dropout`` the production rates."""
+    from t5_resnet_vqa_torch.train import build_optimizer, make_train_step
+
+    if models is None:
+        from t5_resnet_vqa_torch.train.trainer import prepare_model
+        models = {flag: prepare_model(
+            _build_model(torch, torch.float32, flag, dropout=dropout),
+            torch.device(DEVICE), torch.bfloat16).train()
+            for flag in (True, False)}
+    steps = {}
+    for flag, model in models.items():
+        optimizer, scheduler, _, trainable = build_optimizer(
+            model, cfg.optimizer, cfg.lr_scheduler, 10000,
+            frozen_modules=model.frozen_modules())
+        step = make_train_step(model, optimizer, scheduler, trainable,
+                               cfg.trainer.gradient_clipping, torch.bfloat16)
+        steps[flag] = lambda step=step: float(step(batch)[0])
+        for _ in range(3):
+            steps[flag]()
+    times = {True: [], False: []}
+    for r in range(rounds):
+        for flag in ((True, False) if r % 2 == 0 else (False, True)):
+            times[flag].append(step_ms(torch, steps[flag]))
+    result = {}
+    for flag, model in models.items():
+        label = "kernels_on" if flag else "kernels_off"
+        median = float(np.median(times[flag]))
+        line = {"phase": "train_timing", "config": label, "card": card,
+                "dropout": "production" if dropout else 0.0,
+                "dtype": "bfloat16", "batch": BATCH,
+                "train_step_ms": median,
+                "train_samples_per_s": BATCH / (median / 1e3),
+                "fastest_step_ms": float(min(times[flag])),
+                "steps_ms": times[flag]}
+        line.update(train_breakdown(torch, model, batch, steps[flag]))
+        emit(line)
+        result[label] = {k: v for k, v in line.items() if k != "steps_ms"}
+    return result
+
+
+def step_ms(torch, fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def train_breakdown(torch, model, batch, step):
+    """Device busy ms and launches of one train step's parts, and the idle
+    share over 10 profiled steps (the profiler's host work included)."""
+    autocast = lambda: torch.autocast(DEVICE, dtype=torch.bfloat16)
+
+    def vision():
+        with torch.no_grad(), autocast():
+            model.compute_vision_features(batch["image_tensors"])
+
+    def text():
+        with autocast():
+            model.lang_model(batch["question_input_ids"],
+                             batch["question_attention_masks"])
+
+    def forward():
+        with autocast():
+            model(**batch)
+
+    parts = {"vision": vision, "text": text, "forward": forward,
+             "step": step}
+    device = {name: profile_device(torch, fn, iters=1)
+              for name, fn in parts.items()}
+    window = profile_device(torch, step, iters=10)
+    busy = {k: v["busy_ms"] for k, v in device.items()}
+    busy["backward_optimizer"] = busy["step"] - busy["forward"]
+    count = {k: v["launches"] for k, v in device.items()}
+    count["backward_optimizer"] = count["step"] - count["forward"]
+    return {"device_busy_ms": busy, "kernel_launches": count,
+            "device_idle_share": 1.0 - window["busy_ms"] / window["elapsed_ms"],
+            "idle_window": {"steps": 10, "busy_ms": window["busy_ms"],
+                            "elapsed_ms": window["elapsed_ms"]},
+            "top_kernels": [{"us": us, "calls": n, "name": name}
+                            for us, n, name in device["step"]["kernels"][:12]]}
 
 
 def main() -> int:
@@ -533,6 +977,7 @@ def main() -> int:
     att = phase_attention(torch)
     blk = phase_bottleneck(torch)
     launches = phase_serve(torch, card)
+    train = phase_train(torch, card)
 
     print(card, flush=True)
 
@@ -549,7 +994,12 @@ def main() -> int:
                         "bound_ms": numbers["bound_ms"],
                         "bound_share": numbers["bound_ms"] / numbers["ms"],
                         "bound_by": numbers["bound_by"],
-                        "library_ms": numbers["library_ms"]})
+                        "library_ms": numbers["library_ms"],
+                        "train_epoch_launches": train["epoch"][name],
+                        "train_launches_per_step": train["per_step"][name]})
+    kernels[0].update({"bwd_ms": att["bwd_ms"],
+                       "plain_bwd_ms": att["plain_bwd_ms"],
+                       "bwd_max_abs_err": att["bwd_max_abs_err"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,21 @@
-"""Host-side data path of the CNN family: records, tokenizer, images,
-collate."""
+"""Host-side data path of the CNN family: records and dataset, tokenizer,
+images, collate, batching and prefetch, synthetic data."""
 
 from .collate import DaquarCnnCollate, DaquarCollateBase
-from .daquar import Annotation, Question, Sample
+from .daquar import (
+    Annotation,
+    DaquarDataset,
+    Question,
+    Sample,
+    load_answer_spaces,
+)
+from .pipeline import DataLoader, Prefetcher, to_device
+from .synthetic import make_synthetic_daquar
 from .tokenizer import HashTokenizer, get_tokenizer
 
 __all__ = [
-    "Annotation", "DaquarCnnCollate", "DaquarCollateBase", "HashTokenizer",
-    "Question", "Sample", "get_tokenizer",
+    "Annotation", "DaquarCnnCollate", "DaquarCollateBase", "DaquarDataset",
+    "DataLoader", "HashTokenizer", "Prefetcher", "Question", "Sample",
+    "get_tokenizer", "load_answer_spaces", "make_synthetic_daquar",
+    "to_device",
 ]

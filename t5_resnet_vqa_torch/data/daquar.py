@@ -1,10 +1,14 @@
-"""DAQUAR sample records (the dataclasses of the JAX package's
-``data/daquar.py``). Answers get space->underscore normalization."""
+"""DAQUAR records and dataset (the JAX package's ``data/daquar.py``):
+Question/Annotation/Sample, the csv-backed ``DaquarDataset`` and
+``load_answer_spaces``. Answers get space->underscore normalization."""
 
 from __future__ import annotations
 
+import ast
+import csv
 import dataclasses
-from typing import List
+import os
+from typing import Dict, List
 
 
 @dataclasses.dataclass
@@ -33,3 +37,51 @@ class Sample:
     question: Question
     annotation: Annotation
     image_path: str
+
+
+class DaquarDataset:
+    """Map-style dataset over the DAQUAR csv (columns ``image_id``,
+    ``question``, ``answers_list``; the last a python-literal list), with an
+    image_id -> filename map from the images directory.
+
+    The JAX package reads the file with pandas; the port reads it with the
+    ``csv`` module (the card's machine has no pandas) and gives the same
+    rows: the same Question/Annotation ids and texts, and the same answers.
+    """
+
+    def __init__(self, root_dir: str, csv_file_path: str, images_dir: str,
+                 type: str = "train"):
+        with open(os.path.join(root_dir, csv_file_path), newline="") as f:
+            self.data = list(csv.DictReader(f))
+        self.images_dir = os.path.join(root_dir, images_dir)
+        self.type = type
+
+        self.image_ids_to_fn: Dict[str, str] = {}
+        for image_fn in os.listdir(self.images_dir):
+            self.image_ids_to_fn[image_fn.split(".")[0]] = image_fn
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, idx: int) -> Sample:
+        row = self.data[idx]
+        image_id = row["image_id"]
+        question = Question(
+            question_text=row["question"],
+            question_id=f"{image_id}_{idx}_Question",
+            image_id=image_id,
+        )
+        annotation = Annotation(
+            question_id=f"{image_id}__{idx}_Question",
+            image_id=image_id,
+            answers=list(ast.literal_eval(row["answers_list"])),
+        )
+        image_fn = self.image_ids_to_fn[image_id]
+        return Sample(question, annotation,
+                      os.path.join(self.images_dir, image_fn))
+
+
+def load_answer_spaces(path: str) -> List[str]:
+    """Answer-space file, one answer per line."""
+    with open(path) as f:
+        return [line.strip("\n") for line in f.readlines()]

@@ -13,7 +13,9 @@ batch viewed as NCHW, and the convolutions keep that layout, so
 tensor at no cost. With ``use_kernel``, the ResNet-50 blocks of
 ``FUSED_STAGES`` go through ``ops.bottleneck.fused_bottleneck_packed`` (the
 counterpart of ``fused_backbone_apply``, resnet.py:174, at its default
-``fuse_stages``), everything else through the modules.
+``fuse_stages``), everything else through the modules. The kernel has no
+backward and its operands are packed without a gradient, so a fused stage
+refuses to run where autograd would need its weights' gradient.
 """
 
 from __future__ import annotations
@@ -193,6 +195,13 @@ class ResNetBackbone(nn.Module):
         for stage in range(4):
             layer = getattr(self, f"layer{stage + 1}")
             if stage in self.fused_stages:
+                if torch.is_grad_enabled() and any(
+                        p.requires_grad for p in layer.parameters()):
+                    raise RuntimeError(
+                        f"layer{stage + 1} runs through the fused bottleneck "
+                        f"kernel, which has no backward: run the frozen tower "
+                        f"under torch.no_grad(), or build it without the "
+                        f"kernel to train its weights")
                 h_nhwc = h.permute(0, 2, 3, 1).contiguous()
                 for block in layer:
                     h_nhwc = block.forward_fused(h_nhwc)

@@ -5,7 +5,7 @@ reference's ``state_dict`` keys (``vision_model``, ``downscale_layer`` /
 ``upscale_layer``, ``lang_model``, ``sga_modules``, ``attention_pooler``,
 ``classification_layer``):
 
-  frozen resnet18/34/50 -> C5 map                  (detached: no gradient)
+  frozen resnet18/34/50 -> C5 map                  (under no_grad)
   ConvTranspose(k3, s1, p1) channel projection -> hidden
   T5 encoder over question ids [B, 16] -> text states
   SGA stack: x = fresh text states, y = previous output (first: vision tokens)
@@ -15,6 +15,13 @@ With ``use_kernels`` (the default) the ResNet-50 bottlenecks of stages 0
 and 1 and every SGA attention core go through the hand-written
 kernels (``ops/bottleneck.py``, ``ops/attention.py``); on CPU tensors those
 wrappers use their plain versions.
+
+The tower is frozen unless ``fine_tune_vision``: it then runs under
+``torch.no_grad()``, the counterpart of the JAX model's
+``jax.lax.stop_gradient``. With ``fine_tune_vision`` every stage runs
+through the modules with autograd, as in the JAX model: the bottleneck
+kernel has no backward in either package, so it serves the frozen tower
+only.
 """
 
 from __future__ import annotations
@@ -100,7 +107,8 @@ class ResnetVQAModel(nn.Module):
         self.fine_tune_vision = fine_tune_vision
         hidden = sga_config.hidden_size
 
-        self.vision_model = ResNetBackbone(vision_model_name, use_kernels)
+        self.vision_model = ResNetBackbone(
+            vision_model_name, use_kernels and not fine_tune_vision)
         # the reference holds both projections and uses one; the unused twin
         # keeps its fixed 768-wide shape so strict loading succeeds
         feats = resnet_out_channels(vision_model_name)
@@ -136,9 +144,13 @@ class ResnetVQAModel(nn.Module):
 
     def compute_vision_features(self, image_tensors: torch.Tensor
                                 ) -> torch.Tensor:
-        """Frozen-tower forward: uint8/float NHWC images -> C5 map, NHWC."""
-        x = finalize_image_input(image_tensors).to(self._dtype())
-        c5 = self.vision_model(x.permute(0, 3, 1, 2))[-1]
+        """Tower forward: uint8/float NHWC images -> C5 map, NHWC, in the
+        tower's dtype; without a gradient unless ``fine_tune_vision``."""
+        x = finalize_image_input(image_tensors).to(
+            self.vision_model.conv1.weight.dtype)
+        with torch.set_grad_enabled(self.fine_tune_vision
+                                    and torch.is_grad_enabled()):
+            c5 = self.vision_model(x.permute(0, 3, 1, 2))[-1]
         return c5.permute(0, 2, 3, 1)
 
     def forward(
@@ -160,8 +172,6 @@ class ResnetVQAModel(nn.Module):
             image_features = vision_features.to(self._dtype())
         else:
             image_features = self.compute_vision_features(image_tensors)
-            if not self.fine_tune_vision:
-                image_features = image_features.detach()
 
         vision_embeddings = self.projection(
             image_features.permute(0, 3, 1, 2))           # [B, hidden, h, w]

@@ -137,18 +137,20 @@ class T5Attention(nn.Module):
                 B, S, cfg.num_heads, cfg.d_kv).transpose(1, 2)
 
         qh, kh, vh = heads(self.q), heads(self.k), heads(self.v)
-        scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
-        if position_bias is None:
-            if self.relative_attention_bias is not None:
-                position_bias = self.compute_bias(S, S)
-            else:
-                position_bias = torch.zeros((1, cfg.num_heads, S, S),
-                                            device=scores.device)
-            if mask_bias is not None:
-                position_bias = position_bias + mask_bias
-        att = torch.softmax(scores + position_bias, dim=-1).to(qh.dtype)
-        att = self.dropout(att)
-        out = torch.matmul(att.float(), vh.float()).to(qh.dtype)
+        # fp32 scores and P.V, also under a bf16 autocast
+        with torch.autocast(qh.device.type, enabled=False):
+            scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+            if position_bias is None:
+                if self.relative_attention_bias is not None:
+                    position_bias = self.compute_bias(S, S)
+                else:
+                    position_bias = torch.zeros((1, cfg.num_heads, S, S),
+                                                device=scores.device)
+                if mask_bias is not None:
+                    position_bias = position_bias + mask_bias
+            att = torch.softmax(scores + position_bias, dim=-1).to(qh.dtype)
+            att = self.dropout(att)
+            out = torch.matmul(att.float(), vh.float()).to(qh.dtype)
         out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.d_kv)
         return self.o(out), position_bias
 

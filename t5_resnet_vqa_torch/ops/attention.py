@@ -50,17 +50,19 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Scores and softmax in fp32; the probabilities are cast to the query
     dtype before P.V, which accumulates in fp32; the output has q's dtype
     (``ops/layers.py:dot_product_attention`` of the JAX package). ``mask``
-    marks masked positions with True and fills them with -1e9.
+    marks masked positions with True and fills them with -1e9. Autocast is
+    off inside, so that the fp32 products stay fp32 under a bf16 autocast.
     """
     d = q.shape[-1]
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    scores = scores / math.sqrt(d)
-    if mask is not None:
-        scores = scores.masked_fill(mask, -1e9)
-    att = torch.softmax(scores, dim=-1).to(q.dtype)
-    if dropout_p > 0.0:
-        att = torch.nn.functional.dropout(att, dropout_p)
-    return torch.matmul(att.float(), v.float()).to(q.dtype)
+    with torch.autocast(q.device.type, enabled=False):
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores / math.sqrt(d)
+        if mask is not None:
+            scores = scores.masked_fill(mask, -1e9)
+        att = torch.softmax(scores, dim=-1).to(q.dtype)
+        if dropout_p > 0.0:
+            att = torch.nn.functional.dropout(att, dropout_p)
+        return torch.matmul(att.float(), v.float()).to(q.dtype)
 
 
 def _smem_bytes_f32(sk: int, d: int) -> int:

@@ -16,7 +16,9 @@ For a CUDA tensor ``fused_bottleneck`` launches ``csrc/bottleneck.cu``
 shared memory, weights streamed through a ring of bulk copies; see the
 source note), stride 2 with downsample included. For a CPU tensor it
 returns ``bottleneck_reference``. There is no fallback: a CUDA tensor the
-kernel does not take raises. Forward only: the tower is frozen.
+kernel does not take raises. Forward only: the tower is frozen, and an
+input that requires a gradient raises (on the CPU too, so that the plain
+route behaves as the kernel's).
 
 The bf16 kernel reads its weights packed: ``pack_operands`` cuts each
 folded weight into the 64-row chunks the kernel streams, in the order it
@@ -189,6 +191,13 @@ def _launch(x, packed: PackedBottleneck, stride) -> torch.Tensor:
     return out
 
 
+def _check_no_grad(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("fused_bottleneck has no backward: call it under "
+                           "torch.no_grad() on an input that needs no "
+                           "gradient")
+
+
 def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
                      wd: Optional[torch.Tensor] = None,
                      bd: Optional[torch.Tensor] = None,
@@ -197,6 +206,7 @@ def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
 
     CPU tensors: the plain version. CUDA tensors: the kernel, or an error.
     """
+    _check_no_grad(x)
     if x.device.type == "cpu":
         return bottleneck_reference(x, w1, b1, w2, b2, w3, b3, wd, bd, stride)
     if x.device.type != "cuda":
@@ -209,6 +219,7 @@ def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
 def fused_bottleneck_packed(x: torch.Tensor, packed: PackedBottleneck,
                             stride: int = 1) -> torch.Tensor:
     """``fused_bottleneck`` with operands packed once by ``pack_operands``."""
+    _check_no_grad(x)
     if x.device.type == "cpu":
         return bottleneck_reference(x, *packed.plain, stride=stride)
     if x.device.type != "cuda":

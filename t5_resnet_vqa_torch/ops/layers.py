@@ -173,8 +173,9 @@ class AttentionPooler(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = torch.softmax(self.attention(x), dim=1)                 # [B, S, 1]
-        return torch.einsum("bsh,bso->bh", x.float(),
-                            w.float()).to(x.dtype)
+        with torch.autocast(x.device.type, enabled=False):    # fp32 sum
+            return torch.einsum("bsh,bso->bh", x.float(),
+                                w.float()).to(x.dtype)
 
 
 class ChannelProjection(nn.ConvTranspose2d):

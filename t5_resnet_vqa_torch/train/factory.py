@@ -1,0 +1,64 @@
+"""Model factory: config -> model instance and collate family.
+
+PyTorch counterpart of the JAX package's ``train/factory.py``. The port has
+the CNN family's ResNet towers; the other families raise
+``NotImplementedError`` naming their ROADMAP item.
+
+The model is built in fp32 whatever ``compute_dtype`` says: the trainer
+keeps fp32 master weights and computes in bf16 under autocast. The
+hand-written kernels are on (``use_kernels``); ``use_pallas``, the JAX
+package's switch for its Pallas attention, has no counterpart.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.config import ModelConfig
+from ..core.device import DeviceLike
+from ..models import ResnetVQAModel, T5Config
+from ..ops import AttentionConfig
+
+CNN_FAMILY = "cnn"
+VIT_FAMILY = "vit"
+CROSS_FAMILY = "cross_attention"
+
+_NOT_PORTED = {
+    "faster-rcnn": "the Faster-RCNN family (ROADMAP.md, modules item 9)",
+    VIT_FAMILY: "the ViT + T5 family (ROADMAP.md, modules item 10)",
+    CROSS_FAMILY: "the CrossAttention family (ROADMAP.md, modules item 11)",
+}
+
+
+def model_family(model_cfg: ModelConfig) -> str:
+    name = model_cfg.vision_model_name
+    if name in ("resnet18", "resnet34", "resnet50", "faster-rcnn"):
+        return CNN_FAMILY
+    if model_cfg.language_model_name == "roberta-base":
+        return CROSS_FAMILY
+    return VIT_FAMILY
+
+
+def build_model(model_cfg: ModelConfig, num_answers: int,
+                device: DeviceLike = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[nn.Module, str]:
+    """Returns (model on ``device``, family string). Weights are drawn from
+    ``generator`` (default: seeded with 0)."""
+    family = model_family(model_cfg)
+    name = model_cfg.vision_model_name
+    missing = _NOT_PORTED.get(name if name == "faster-rcnn" else family)
+    if missing is not None:
+        raise NotImplementedError(f"{name!r} needs {missing}, which the "
+                                  f"port does not have yet")
+    model = ResnetVQAModel(
+        num_answers, temperature_scaler=model_cfg.temperature_scaler,
+        vision_model_name=name, t5_config=T5Config.t5_base(),
+        num_attention_blocks=model_cfg.num_attention_blocks,
+        sga_config=AttentionConfig(),
+        fine_tune_vision=model_cfg.fine_tune_vision, use_kernels=True,
+        device=device, generator=generator)
+    return model, family

@@ -3,7 +3,7 @@
 * An AST scan of every file of ``t5_resnet_vqa_torch/`` finds no import of
   jax, flax, optax, orbax or t5_resnet_vqa_tpu, at any depth.
 * Packages the GPU machine lacks (cv2, PIL, pandas, transformers,
-  tokenizers, triton) are imported only inside functions.
+  tokenizers, triton, nltk) are imported only inside functions.
 * Every module imports in a fresh interpreter in which ``import jax`` fails.
 * Entry points raise when no CUDA device exists and the CPU was not named.
 """
@@ -26,7 +26,8 @@ from t5_resnet_vqa_torch.ops import AttentionConfig
 PKG_DIR = os.path.dirname(t5_resnet_vqa_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "t5_resnet_vqa_tpu")
-LAZY_ONLY = ("cv2", "PIL", "pandas", "transformers", "tokenizers", "triton")
+LAZY_ONLY = ("cv2", "PIL", "pandas", "transformers", "tokenizers", "triton",
+             "nltk")
 
 
 def _sources():
@@ -51,7 +52,9 @@ def test_package_has_sources():
     names = {os.path.relpath(p, PKG_DIR) for p in SOURCES}
     for rel in ("ops/attention.py", "ops/bottleneck.py", "ops/layers.py",
                 "models/resnet_vqa.py", "eval/session.py",
-                "utils/weights.py", "core/constants.py"):
+                "utils/weights.py", "core/constants.py", "core/config.py",
+                "data/pipeline.py", "eval/wups.py", "train/trainer.py",
+                "train/optimizer.py", "train/__main__.py"):
         assert rel in names
     for cu in ("attention.cu", "bottleneck.cu"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", cu))
