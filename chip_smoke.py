@@ -39,7 +39,25 @@ Phases (each raises on failure; nothing is caught):
               of the forward alone) and profiles one forward of each
               (device time and kernel launches of the vision tower, the
               text tower and the forward, and the device's idle share).
-4. train   -- the training path at the same width, B=64, bf16 compute
+4. serve_vit -- the ViT family's serving path at full width: ViT-base
+              (12 layers, 224^2 images in 16x16 patches, 197 tokens) +
+              T5-base encoder and decoder (12 + 12 layers, one tied
+              32128-row table), 170 answers, bf16, random weights from a
+              seeded generator, seeded uint8 images. ``ask_batch`` over 192
+              requests (three forwards of 64): 12 attention launches per
+              forward (the ViT self-attention at S=197), finite log-probs
+              whose rows sum to one and give the served top-k, kernels on
+              against off (bf16 and fp32). ``generate_batch`` on one chunk,
+              greedy and beam (3 beams, 5 tokens): kernels on against off in
+              fp32 (tokens equal, beam scores within 1e-4); in bf16 the
+              share of equal greedy tokens is printed. Then ``ask_batch``
+              and ``generate_batch`` times with the kernels on and off in
+              turns, and a profile of one forward of each (device time and
+              launches of the tower, the T5 encoder, the decoder and the
+              forward; idle share) and of one greedy and one beam
+              ``generate_batch`` of each (device time, launches, idle
+              share).
+5. train   -- the training path at the same width, B=64, bf16 compute
               with fp32 master weights: one epoch (8 train and 2 test
               batches) through ``VQATrainer`` with the reference config's
               optimizer and dropout, checking finite losses, launches per
@@ -57,15 +75,18 @@ nvidia-smi reports them, then the kernels line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 
 In the kernels line, ``launches`` is the count over the three served
-forwards (``train_epoch_launches`` over the training epoch,
+forwards of the CNN family (``vit_launches`` over the ViT family's three,
+``train_epoch_launches`` over the training epoch,
 ``train_launches_per_step`` with the production dropout and at 0);
 ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms`` and attention's
 ``bwd_ms`` are per forward (``bound_share`` is ``bound_ms / ms``):
 the bf16 times of the kernel phase summed over the shapes one
 forward launches (attention: 5 at Sk=16 and 1 at Sk=64; bottleneck: the
 seven blocks of stages 0 and 1); ``max_abs_err`` is the largest of those
-cases. Bounds are the larger of bytes over 3.35 TB/s and FLOPs over the
-dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32), H100 SXM data sheet.
+cases. Attention's ``vit_ms``, ``vit_plain_ms``, ``vit_bound_ms`` and
+``vit_library_ms`` are per launch at the ViT shape (B=64, H=12, S=197,
+D=64, bf16). Bounds are the larger of bytes over 3.35 TB/s and FLOPs over
+the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32), H100 SXM data sheet.
 """
 
 import json
@@ -73,6 +94,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -89,6 +111,10 @@ DEVICE = "cuda"
 BATCH = 64
 CHUNKS = 3
 ROUNDS = 20            # timed ask_batch rounds per configuration
+VIT_ROUNDS = 10        # timed rounds of the ViT phase, per configuration
+GEN_TOKENS = 5         # generate_batch: answer length and beams
+GEN_BEAMS = 3
+BEAM_SCORE_TOL = 1e-4  # fp32 beam scores, kernels on against off
 PROFILE_TRIES = 3
 ANSWERS = 170          # the DAQUAR answer-space size
 IMAGE = 256
@@ -246,6 +272,13 @@ def phase_attention(torch):
                 line.update(attention_backward(torch, A, B, H, Sq, Sk, D,
                                                dtype, dtype_name, name))
             emit(line)
+            if dtype_name == "bfloat16" and name == "vit_s197":
+                per_forward["vit"] = {
+                    "ms": ms, "ms_head_views": views_ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": bound_by(t_bytes, t_ops),
+                    "max_abs_err": abs_err}
             if dtype_name == "bfloat16" and n_fwd:
                 per_forward["ms"] += n_fwd * ms
                 per_forward["plain_ms"] += n_fwd * plain_ms
@@ -476,7 +509,8 @@ def phase_serve(torch, card):
             s = session if label == "kernels_on" else plain
             rounds[label].append(serve_ms(torch, s, requests)[0])
     for label, s in (("kernels_on", session), ("kernels_off", plain)):
-        phase_breakdown(torch, label, s.model, batches[0], card)
+        phase_breakdown(torch, "breakdown", label,
+                        cnn_parts(s.model, batches[0]), card)
 
     # and once in fp32 (no TF32 anywhere), on one chunk
     state = session.model.state_dict()
@@ -521,43 +555,284 @@ def serve_ms(torch, session, requests):
     return (time.perf_counter() - t0) * 1e3, results
 
 
-def phase_breakdown(torch, label, model, batch, card):
-    """Where one bf16 forward's time goes. CUDA-event times of the vision
-    tower, the text tower and the whole forward (the rest is the
-    projection, SGA and head), and the pairs/s of back-to-back forwards
-    that the last gives; from the profiler, for each of the three,
-    the device time of its kernels (kernel rows only: an operator row
-    repeats its kernels' time) and how many it launched; the device's idle
-    share over back-to-back forwards, with its busy time and its elapsed
-    time both taken in one profiled window (the profiler's own host work
-    is in that window); the forward's busiest kernels."""
+def cnn_parts(model, batch):
+    """The CNN family's forward and two of its parts, for ``phase_breakdown``:
+    the vision tower and the text tower (the rest is the projection, SGA and
+    head)."""
+    return {
+        "vision": lambda: model.compute_vision_features(batch["image_tensors"]),
+        "text": lambda: model.lang_model(batch["question_input_ids"],
+                                         batch["question_attention_masks"]),
+        "forward": lambda: model(**batch),
+    }
+
+
+def phase_breakdown(torch, phase, label, parts, card):
+    """Where one bf16 forward's time goes. ``parts`` maps a name to a call of
+    one part of the forward and ``"forward"`` to the whole forward. For
+    each: its CUDA-event time (``rest_ms`` is the forward's less the parts')
+    and, from the profiler, the device time of its kernels (kernel rows
+    only: an operator row repeats its kernels' time) and how many it
+    launched; the pairs/s of back-to-back forwards; the device's idle share
+    over 10 back-to-back forwards, with its busy time and its elapsed time
+    both taken in one profiled window (the profiler's own host work is in
+    that window); the forward's busiest kernels. Emits the line and returns
+    it."""
     with torch.inference_mode():
-        parts = {
-            "vision": lambda: model.compute_vision_features(
-                batch["image_tensors"]),
-            "text": lambda: model.lang_model(
-                batch["question_input_ids"],
-                batch["question_attention_masks"]),
-            "forward": lambda: model(**batch),
-        }
         wall = {name: cuda_ms(torch, fn, iters=10)
                 for name, fn in parts.items()}
         device = {name: profile_device(torch, fn, iters=1)
                   for name, fn in parts.items()}
         window = profile_device(torch, parts["forward"], iters=10)
-    emit({"phase": "breakdown", "config": label, "card": card,
-          "batch": BATCH, "dtype": "bfloat16",
-          "forward_pairs_per_s": BATCH / (wall["forward"] / 1e3),
-          "vision_ms": wall["vision"],
-          "text_ms": wall["text"], "forward_ms": wall["forward"],
-          "rest_ms": wall["forward"] - wall["vision"] - wall["text"],
-          "device_busy_ms": {k: v["busy_ms"] for k, v in device.items()},
-          "kernel_launches": {k: v["launches"] for k, v in device.items()},
-          "device_idle_share": 1.0 - window["busy_ms"] / window["elapsed_ms"],
-          "idle_window": {"forwards": 10, "busy_ms": window["busy_ms"],
-                          "elapsed_ms": window["elapsed_ms"]},
-          "top_kernels": [{"us": us, "calls": n, "name": name}
-                          for us, n, name in device["forward"]["kernels"][:12]]})
+    line = {"phase": phase, "config": label, "card": card,
+            "batch": BATCH, "dtype": "bfloat16",
+            "forward_pairs_per_s": BATCH / (wall["forward"] / 1e3),
+            "event_ms": wall,
+            "rest_ms": wall["forward"] - sum(v for k, v in wall.items()
+                                             if k != "forward"),
+            "device_busy_ms": {k: v["busy_ms"] for k, v in device.items()},
+            "kernel_launches": {k: v["launches"] for k, v in device.items()},
+            "device_idle_share": 1.0 - window["busy_ms"] / window["elapsed_ms"],
+            "idle_window": {"forwards": 10, "busy_ms": window["busy_ms"],
+                            "elapsed_ms": window["elapsed_ms"]},
+            "top_kernels": [{"us": us, "calls": n, "name": name}
+                            for us, n, name in
+                            device["forward"]["kernels"][:12]]}
+    emit(line)
+    return line
+
+
+def _build_vit_model(torch, dtype, use_kernels):
+    """ViT-base + T5-base encoder-decoder at full width, weights from a
+    generator seeded with 0."""
+    from t5_resnet_vqa_torch.models import VitVQAModel
+
+    return VitVQAModel(ANSWERS, use_kernels=use_kernels, dtype=dtype,
+                       device=DEVICE,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def _generate(session, requests, num_beams):
+    """``generate_batch`` with the hash tokenizer's warning silenced (the
+    card's machine has no real tokenizer; the ids are what is compared)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return session.generate_batch(requests, num_beams=num_beams,
+                                      max_answer_length=GEN_TOKENS)
+
+
+def _padded_tokens(results):
+    return np.array([r["token_ids"] + [0] * (GEN_TOKENS - len(r["token_ids"]))
+                     for r in results])
+
+
+def phase_serve_vit(torch, card):
+    """The ViT family behind ``ask_batch`` and ``generate_batch`` at full
+    width (see the module docstring). Returns the kernels' launches over
+    the three served forwards."""
+    from t5_resnet_vqa_torch.eval import VQAInferenceSession
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+
+    t_phase = time.perf_counter()
+    answers = [f"answer{i:03d}" for i in range(ANSWERS)]
+    rng = np.random.default_rng(2)
+    objects = ["table", "chair", "lamp", "sofa", "bottle", "book", "cup"]
+    requests = [(f"vit_request_{i}.png",
+                 f"what is on the {objects[int(rng.integers(len(objects)))]}"
+                 f" number {i % BATCH}") for i in range(CHUNKS * BATCH)]
+    size = 224
+    images = {path: rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+              for path, _ in requests}
+
+    def load_images(paths):
+        return np.stack([images[p] for p in paths])
+
+    def serving(dtype, use_kernels, state=None):
+        model = _build_vit_model(torch, dtype, use_kernels)
+        session = VQAInferenceSession(model, state, answers, "vit",
+                                      batch_size=BATCH, device=DEVICE)
+        session.collate.load_images = load_images
+        return session
+
+    session = serving(torch.bfloat16, True)
+    session.ask_batch(requests[:BATCH])       # first call: allocator, cuDNN
+    torch.cuda.synchronize()
+
+    # the main path once: three chunks of requests, counts read right after
+    A.launches = 0
+    K.launches = 0
+    first_ms, results = serve_ms(torch, session, requests)
+    launches = {"attention": A.launches, "bottleneck": K.launches}
+    if launches != {"attention": 12 * CHUNKS, "bottleneck": 0}:
+        raise AssertionError(f"ViT launch counts {launches}, expected 12 "
+                             f"attention per forward over {CHUNKS} forwards")
+    if len(results) != len(requests) or \
+            not all(r["answer"] in answers for r in results):
+        raise AssertionError("answers missing or outside the answer space")
+
+    plain = serving(torch.bfloat16, False, state=session.model.state_dict())
+    batches = [session._to_device(session._collate_chunk(
+        requests[c * BATCH:(c + 1) * BATCH])) for c in range(CHUNKS)]
+    bf16_diff = 0.0
+    for c, batch in enumerate(batches):
+        lp = session._predict(batch).cpu().numpy()
+        if lp.shape != (BATCH, ANSWERS) or not np.isfinite(lp).all():
+            raise AssertionError(f"ViT log-probs of shape {lp.shape}, "
+                                 f"finite={np.isfinite(lp).all()}")
+        sums = np.exp(lp.astype(np.float64)).sum(-1)
+        if not np.abs(sums - 1.0).max() <= 1e-3:
+            raise AssertionError(f"ViT probabilities sum to {sums.min()}.."
+                                 f"{sums.max()}")
+        served = np.array([r["top_probs"]
+                           for r in results[c * BATCH:(c + 1) * BATCH]])
+        top = np.exp(np.sort(lp, axis=-1)[:, ::-1][:, :3])
+        if not np.abs(served - top).max() <= 1e-4:
+            raise AssertionError("ViT served top-k probabilities differ from "
+                                 "the forward's log-probs")
+        off = plain._predict(batch).cpu().numpy()
+        bf16_diff = max(bf16_diff, float(np.abs(lp - off).max()))
+    if not bf16_diff <= LOGPROB_TOL["bfloat16"]:
+        raise AssertionError(f"ViT bf16 kernels on/off log-probs differ by "
+                             f"{bf16_diff} > {LOGPROB_TOL['bfloat16']}")
+
+    # generation on one chunk; bf16 greedy agreement is reported, not gated
+    chunk = requests[:BATCH]
+    A.launches = 0
+    greedy_bf16 = {flag: _padded_tokens(_generate(s, chunk, 1))
+                   for flag, s in ((True, session), (False, plain))}
+    gen_launches = A.launches
+    if gen_launches != 12:
+        raise AssertionError(f"greedy generate_batch on one chunk launched "
+                             f"attention {gen_launches} times, expected 12 "
+                             f"(one tower forward)")
+    bf16_equal = float((greedy_bf16[True] == greedy_bf16[False]).mean())
+
+    # timings: kernels on and off in turns
+    rounds = {"ask_batch": {"kernels_on": [], "kernels_off": []},
+              "greedy": {"kernels_on": [], "kernels_off": []},
+              "beam": {"kernels_on": [], "kernels_off": []}}
+    calls = {"ask_batch": lambda s: s.ask_batch(requests, top_k=3),
+             "greedy": lambda s: _generate(s, chunk, 1),
+             "beam": lambda s: _generate(s, chunk, GEN_BEAMS)}
+    for r in range(VIT_ROUNDS):
+        order = (("kernels_on", session), ("kernels_off", plain))
+        for label, s in (order if r % 2 == 0 else order[::-1]):
+            for what, fn in calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(s)
+                rounds[what][label].append((time.perf_counter() - t0) * 1e3)
+    sessions = (("kernels_on", session), ("kernels_off", plain))
+    breakdown = {label: phase_breakdown(torch, "breakdown_vit", label,
+                                        vit_parts(torch, s.model, batches[0]),
+                                        card)
+                 for label, s in sessions}
+    # one profiled generate_batch of each kind on one chunk: the device's
+    # busy time, its launches and its idle share over the call
+    generation = {}
+    for what in ("greedy", "beam"):
+        for label, s in sessions:
+            prof = profile_device(torch, lambda: calls[what](s))
+            generation.setdefault(what, {})[label] = {
+                "busy_ms": prof["busy_ms"], "elapsed_ms": prof["elapsed_ms"],
+                "launches": prof["launches"],
+                "device_idle_share": 1.0 - prof["busy_ms"] / prof["elapsed_ms"]}
+
+    # fp32 (no TF32): log-probs, greedy tokens and beams, on one chunk
+    state = session.model.state_dict()
+    del session, plain
+    torch.cuda.empty_cache()
+    fp32 = {}
+    for flag in (True, False):
+        s = serving(torch.float32, flag, state=state)
+        A.launches = 0
+        with torch.inference_mode():
+            lp = s.model(**batches[0])[0]
+        if A.launches != (12 if flag else 0):
+            raise AssertionError(f"fp32 forward with use_kernels={flag} "
+                                 f"launched attention {A.launches} times")
+        fp32[flag] = (lp, _generate(s, chunk, 1), _generate(s, chunk,
+                                                            GEN_BEAMS))
+        del s
+        torch.cuda.empty_cache()
+    fp32_diff = float((fp32[True][0] - fp32[False][0]).abs().max())
+    if not fp32_diff <= LOGPROB_TOL["float32"]:
+        raise AssertionError(f"ViT fp32 kernels on/off log-probs differ by "
+                             f"{fp32_diff} > {LOGPROB_TOL['float32']}")
+    for i, what in ((1, "greedy"), (2, "beam")):
+        on = [r["token_ids"] for r in fp32[True][i]]
+        off = [r["token_ids"] for r in fp32[False][i]]
+        if on != off:
+            diff = sum(a != b for a, b in zip(on, off))
+            raise AssertionError(f"fp32 {what} tokens differ with the "
+                                 f"kernels on and off in {diff} rows")
+    score_diff = float(np.abs(np.array([r["score"] for r in fp32[True][2]])
+                              - np.array([r["score"]
+                                          for r in fp32[False][2]])).max())
+    if not score_diff <= BEAM_SCORE_TOL:
+        raise AssertionError(f"fp32 beam scores on/off differ by "
+                             f"{score_diff} > {BEAM_SCORE_TOL}")
+    lengths = [len(r["token_ids"]) for r in fp32[True][2]]
+    if max(len(r["token_ids"]) for r in fp32[True][1]) < 2:
+        raise AssertionError("fp32 greedy generation stopped after one token "
+                             "in every row")
+
+    median = {what: {label: float(np.median(ms)) for label, ms in d.items()}
+              for what, d in rounds.items()}
+    pairs = len(requests)
+    emit({"phase": "serve_vit", "card": card,
+          "model": "vit-base + t5-base enc-dec", "answers": ANSWERS,
+          "dtype": "bfloat16", "batch": BATCH, "requests": pairs,
+          "launches": launches, "first_run_ms": first_ms,
+          "ask_batch_ms": median["ask_batch"]["kernels_on"],
+          "pairs_per_s": pairs / (median["ask_batch"]["kernels_on"] / 1e3),
+          "kernels_off_ask_batch_ms": median["ask_batch"]["kernels_off"],
+          "kernels_off_pairs_per_s":
+              pairs / (median["ask_batch"]["kernels_off"] / 1e3),
+          "generate_batch_ms_per_chunk": {
+              what: median[what] for what in ("greedy", "beam")},
+          "fastest_ms": {what: {label: float(min(ms))
+                                for label, ms in d.items()}
+                         for what, d in rounds.items()},
+          "rounds": VIT_ROUNDS, "rounds_ms": rounds,
+          "generate": {"max_answer_length": GEN_TOKENS, "beams": GEN_BEAMS,
+                       "attention_launches_greedy_chunk": gen_launches,
+                       "bf16_greedy_equal_token_share": bf16_equal,
+                       "fp32_greedy_equal": True, "fp32_beam_equal": True,
+                       "fp32_beam_score_diff": score_diff,
+                       "fp32_beam_lengths": [min(lengths), max(lengths)]},
+          "logprob_diff_bf16": bf16_diff, "logprob_diff_fp32": fp32_diff,
+          "device_busy_ms": {k: v["device_busy_ms"]
+                             for k, v in breakdown.items()},
+          "kernel_launches": {k: v["kernel_launches"]
+                              for k, v in breakdown.items()},
+          "device_idle_share": {k: v["device_idle_share"]
+                                for k, v in breakdown.items()},
+          "generate_profile": generation,
+          "sample_answer": results[0],
+          "sample_generation": fp32[True][2][0],
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def vit_parts(torch, model, batch):
+    """The ViT family's forward and three of its parts, for
+    ``phase_breakdown``: the tower, the T5 encoder and the decoder (the rest
+    is the fusing layer and the head)."""
+    with torch.inference_mode():
+        fused = model.fuse(batch["question_input_ids"],
+                           batch["question_attention_masks"],
+                           batch["pixel_values"])
+    return {
+        "vision": lambda: model.compute_vision_features(batch["pixel_values"]),
+        "text": lambda: model.lang_model.encoder(
+            batch["question_input_ids"], batch["question_attention_masks"]),
+        "decoder": lambda: model.decode_hidden(
+            batch["decoder_question_input_ids"],
+            batch["decoder_question_attention_masks"], fused),
+        "forward": lambda: model(**batch),
+    }
 
 
 def profile_device(torch, fn, iters: int = 1) -> dict:
@@ -977,6 +1252,7 @@ def main() -> int:
     att = phase_attention(torch)
     blk = phase_bottleneck(torch)
     launches = phase_serve(torch, card)
+    vit_launches = phase_serve_vit(torch, card)
     train = phase_train(torch, card)
 
     print(card, flush=True)
@@ -997,9 +1273,18 @@ def main() -> int:
                         "library_ms": numbers["library_ms"],
                         "train_epoch_launches": train["epoch"][name],
                         "train_launches_per_step": train["per_step"][name]})
+    vit = att["vit"]
     kernels[0].update({"bwd_ms": att["bwd_ms"],
                        "plain_bwd_ms": att["plain_bwd_ms"],
-                       "bwd_max_abs_err": att["bwd_max_abs_err"]})
+                       "bwd_max_abs_err": att["bwd_max_abs_err"],
+                       "vit_launches": vit_launches["attention"],
+                       "vit_ms": vit["ms"],
+                       "vit_ms_head_views": vit["ms_head_views"],
+                       "vit_plain_ms": vit["plain_ms"],
+                       "vit_bound_ms": vit["bound_ms"],
+                       "vit_bound_by": vit["bound_by"],
+                       "vit_library_ms": vit["library_ms"],
+                       "vit_max_abs_err": vit["max_abs_err"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

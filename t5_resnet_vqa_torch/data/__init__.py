@@ -1,7 +1,7 @@
-"""Host-side data path of the CNN family: records and dataset, tokenizer,
-images, collate, batching and prefetch, synthetic data."""
+"""Host-side data path: records and dataset, tokenizer, images, the CNN and
+ViT collates, batching and prefetch, synthetic data."""
 
-from .collate import DaquarCnnCollate, DaquarCollateBase
+from .collate import DaquarCnnCollate, DaquarCollateBase, DaquarVitCollate
 from .daquar import (
     Annotation,
     DaquarDataset,
@@ -15,7 +15,7 @@ from .tokenizer import HashTokenizer, get_tokenizer
 
 __all__ = [
     "Annotation", "DaquarCnnCollate", "DaquarCollateBase", "DaquarDataset",
-    "DataLoader", "HashTokenizer", "Prefetcher", "Question", "Sample",
-    "get_tokenizer", "load_answer_spaces", "make_synthetic_daquar",
-    "to_device",
+    "DaquarVitCollate", "DataLoader", "HashTokenizer", "Prefetcher",
+    "Question", "Sample", "get_tokenizer", "load_answer_spaces",
+    "make_synthetic_daquar", "to_device",
 ]

@@ -1,16 +1,24 @@
-"""Batch collate for the CNN family: raw DAQUAR samples -> fixed-shape numpy
-feeds (the JAX package's ``DaquarCollateBase`` and ``DaquarCnnCollate``).
+"""Batch collates: raw DAQUAR samples -> fixed-shape numpy feeds (the JAX
+package's ``DaquarCollateBase``, ``DaquarCnnCollate`` and ``DaquarVitCollate``).
 
-cv2 decode -> RGB -> resize to 256^2 -> ToTensor only (unnormalized), or
-the resized uint8 batch with ``emit_uint8``; question "[Question] {q}"
-padded to 16; decoder text "+ [Answer]" and answers padded to 20; label =
-a randomly chosen answer's index in the answer space (out-of-vocabulary
+Text and labels, shared by both families: question "[Question] {q}" padded
+to 16; decoder text "+ [Answer]" and answers padded to 20; label = a
+randomly chosen answer's index in the answer space (out-of-vocabulary
 answers fall back to the 'O' class), drawn from a seeded numpy Generator.
+Images, per family: cv2 decode -> RGB -> resize, then
+
+  * CNN: 256^2 with the configured interpolation, ToTensor only
+    (unnormalized), key ``image_tensors``;
+  * ViT: 224^2 bilinear, rescaled 1/255 then normalized with mean = std =
+    0.5 (the in21k ViT image processor), key ``pixel_values``;
+
+or the resized uint8 batch with ``emit_uint8``, which the model scales (and
+normalizes) on the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -21,6 +29,12 @@ from .tokenizer import get_tokenizer
 
 
 class DaquarCollateBase:
+    """Text, labels and the image pipeline's frame; a family sets the image
+    size, interpolation, normalization and batch key."""
+
+    images_key = "image_tensors"
+    normalize: Optional[Tuple[Sequence[float], Sequence[float]]] = None
+
     def __init__(
         self,
         answer_spaces: Sequence[str],
@@ -28,6 +42,7 @@ class DaquarCollateBase:
         eval_mode: bool = False,
         seed: int = 0,
         tokenizer=None,
+        emit_uint8: bool = False,
     ):
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
         self._answer_index = {a: i for i, a in enumerate(self.answer_spaces)}
@@ -41,6 +56,10 @@ class DaquarCollateBase:
         self._oov_index = self._answer_index.get("O", 0)
         # False: batches carry no image array (decode and resize skipped)
         self.emit_images = True
+        self.emit_uint8 = emit_uint8
+        self.resizing_dimensions = (constants.CNN_IMAGE_SIZE,
+                                    constants.CNN_IMAGE_SIZE)
+        self.interpolation_strategy = "bilinear_interpolation"
 
     def _labels(self, samples: Sequence[Sample]):
         """Pick one answer per sample (fresh each call) and map to ids."""
@@ -85,6 +104,20 @@ class DaquarCollateBase:
             batch["image_fns"] = [s.image_path for s in samples]
         return batch
 
+    def load_images(self, paths: Sequence[str]) -> np.ndarray:
+        """[B, H, W, 3] float32 (normalized where the family normalizes),
+        or resized uint8 with ``emit_uint8`` (the model scales and
+        normalizes on the device)."""
+        return load_image_batch(
+            list(paths), self.resizing_dimensions,
+            self.interpolation_strategy, normalize=self.normalize,
+            emit_uint8=self.emit_uint8)
+
+    def __call__(self, samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
+        images = (self.load_images([s.image_path for s in samples])
+                  if self.emit_images else None)
+        return self._assemble(samples, self.images_key, images)
+
 
 class DaquarCnnCollate(DaquarCollateBase):
     """CNN-family collate (reference DaquarFasterRcnnT5CollateFn)."""
@@ -95,19 +128,23 @@ class DaquarCnnCollate(DaquarCollateBase):
                                       constants.CNN_IMAGE_SIZE),
                  lang_model: str = "t5-base", eval_mode: bool = False,
                  seed: int = 0, tokenizer=None, emit_uint8: bool = False):
-        super().__init__(answer_spaces, lang_model, eval_mode, seed, tokenizer)
+        super().__init__(answer_spaces, lang_model, eval_mode, seed,
+                         tokenizer, emit_uint8)
         self.interpolation_strategy = interpolation_strategy
         self.resizing_dimensions = tuple(resizing_dimensions)
-        self.emit_uint8 = emit_uint8
 
-    def load_images(self, paths: Sequence[str]) -> np.ndarray:
-        """[B, H, W, 3] float32 in [0, 1], or resized uint8 with
-        ``emit_uint8`` (the model divides by 255 on the device)."""
-        return load_image_batch(
-            list(paths), self.resizing_dimensions,
-            self.interpolation_strategy, emit_uint8=self.emit_uint8)
 
-    def __call__(self, samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
-        images = (self.load_images([s.image_path for s in samples])
-                  if self.emit_images else None)
-        return self._assemble(samples, "image_tensors", images)
+class DaquarVitCollate(DaquarCollateBase):
+    """ViT-family collate (reference DaquarVitT5CollateFn): 224^2 bilinear,
+    pixel values rescaled 1/255 then normalized with mean = std = 0.5."""
+
+    images_key = "pixel_values"
+    normalize = (constants.VIT_IMAGE_MEAN, constants.VIT_IMAGE_STD)
+
+    def __init__(self, answer_spaces: Sequence[str],
+                 lang_model: str = "t5-base", eval_mode: bool = False,
+                 seed: int = 0, tokenizer=None, emit_uint8: bool = False):
+        super().__init__(answer_spaces, lang_model, eval_mode, seed,
+                         tokenizer, emit_uint8)
+        self.resizing_dimensions = (constants.VIT_IMAGE_SIZE,
+                                    constants.VIT_IMAGE_SIZE)

@@ -1,15 +1,16 @@
-"""Host-side image preprocessing: decode -> RGB -> resize -> scale.
+"""Host-side image preprocessing: decode -> RGB -> resize -> scale/normalize.
 
 The cv2 path of the JAX package's ``data/preprocessing.py``: cv2.imread
 (BGR) -> cvtColor RGB -> cv2.resize with the configured interpolation ->
-float in [0, 1] (ToTensor parity, unnormalized as the CNN family takes it),
+float in [0, 1] (ToTensor parity, unnormalized as the CNN family takes it;
+the ViT family also normalizes with the image processor's mean and std),
 NHWC. ``cv2`` is imported inside the functions, so the module imports on
 machines without it.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -44,24 +45,34 @@ def load_and_resize_image(
                       interpolation=_CV2_INTERP[interpolation_strategy])
 
 
-def finalize_image(img_u8: np.ndarray) -> np.ndarray:
-    """uint8 [H, W, 3] -> float32 [H, W, 3] in [0, 1]."""
-    return img_u8.astype(np.float32) / 255.0
+def finalize_image(
+    img_u8: np.ndarray,
+    normalize: Optional[Tuple[Sequence[float], Sequence[float]]] = None,
+) -> np.ndarray:
+    """uint8 [H, W, 3] -> float32 [H, W, 3] in [0, 1], then
+    ``(x - mean) / std`` in float32 when ``normalize`` is given."""
+    out = img_u8.astype(np.float32) / 255.0
+    if normalize is not None:
+        mean, std = normalize
+        out = (out - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return out
 
 
 def load_image_batch(
     paths: Sequence[str],
     size: Tuple[int, int],
     interpolation_strategy: str = "bilinear_interpolation",
+    normalize: Optional[Tuple[Sequence[float], Sequence[float]]] = None,
     emit_uint8: bool = False,
 ) -> np.ndarray:
-    """-> [B, H, W, 3] float32 NHWC batch, or the resized uint8 batch when
-    ``emit_uint8`` (the model then scales on the device)."""
+    """-> [B, H, W, 3] float32 NHWC batch (normalized when ``normalize`` is
+    given), or the resized uint8 batch when ``emit_uint8`` (the model then
+    scales and normalizes on the device)."""
     w, h = size
     paths = list(paths)
     out = np.empty((len(paths), h, w, 3),
                    np.uint8 if emit_uint8 else np.float32)
     for i, path in enumerate(paths):
         img = load_and_resize_image(path, size, interpolation_strategy)
-        out[i] = img if emit_uint8 else finalize_image(img)
+        out[i] = img if emit_uint8 else finalize_image(img, normalize)
     return out

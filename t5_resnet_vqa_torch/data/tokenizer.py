@@ -1,5 +1,6 @@
-"""Tokenizers for the question/answer text path (the encoding half of the
-JAX package's ``data/tokenizer.py``; ``transformers`` stays a lazy import).
+"""Tokenizers for the question/answer text path (encoding and decoding, as
+the JAX package's ``data/tokenizer.py``; ``transformers`` stays a lazy
+import).
 
 The reference builds an HF ``AutoTokenizer.from_pretrained("t5-base")`` inside
 each collate and registers 3 + 11 extra special tokens WITHOUT resizing the
@@ -67,6 +68,7 @@ class HashTokenizer:
             tok: constants.T5_FIRST_EXTRA_ID + i
             for i, tok in enumerate(SPECIAL_TOKENS)
         }
+        self.id_to_special = {v: k for k, v in self.special_to_id.items()}
         self._special_re = re.compile(
             "(" + "|".join(re.escape(t) for t in SPECIAL_TOKENS) + ")")
         self.pinned: dict = {}
@@ -120,6 +122,29 @@ class HashTokenizer:
             mask[i, : len(toks)] = 1
         return ids, mask
 
+    def decode_specials(self, ids: Sequence[int]) -> List[str]:
+        return [self.id_to_special.get(int(i), f"<{int(i)}>") for i in ids]
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        """Hashed word ids are not invertible: generated tokens surface as
+        ``<id>`` placeholders and special tokens decode by name. Real text
+        needs the HF tokenizer."""
+        parts = []
+        for i in ids:
+            i = int(i)
+            if i in (self.pad_token_id, self.eos_token_id):
+                if not skip_special_tokens:
+                    parts.append("</s>" if i == self.eos_token_id else "<pad>")
+                continue
+            sp = self.id_to_special.get(i)
+            if sp is not None:
+                if not skip_special_tokens:
+                    parts.append(sp)
+                continue
+            parts.append(f"<{i}>")
+        return " ".join(parts)
+
 
 class HFTokenizer:
     """HF AutoTokenizer adapter with the reference's special-token setup."""
@@ -150,6 +175,11 @@ class HFTokenizer:
                        truncation=truncation, max_length=max_length)
         return (out["input_ids"].astype(np.int32),
                 out["attention_mask"].astype(np.int32))
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        return self.tok.decode([int(i) for i in ids],
+                               skip_special_tokens=skip_special_tokens)
 
 
 def get_tokenizer(lang_model: str = "t5-base",

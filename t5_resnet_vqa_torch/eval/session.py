@@ -1,14 +1,18 @@
-"""Batched VQA inference session for the CNN family (the serving surface).
+"""Batched VQA inference session for the CNN and ViT families (the serving
+surface).
 
 PyTorch counterpart of ``VQAInferenceSession`` in the JAX package's
-``eval/session.py``: requests are collated exactly as in training, padded
-up to a fixed batch, run through one forward under ``torch.inference_mode``
-with the model in ``eval()``, and decoded against the answer space.
+``eval/session.py``: requests are collated exactly as in training (CNN:
+unnormalized 256^2 images; ViT: 224^2 pixel values with mean = std = 0.5,
+both as uint8 on the wire), padded up to a fixed batch, run under
+``torch.inference_mode`` with the model in ``eval()``, and decoded:
+``ask_batch`` against the answer space, ``generate_batch`` (ViT family
+only) into token ids and text.
 
-``ask_batch`` launches every chunk's forward before it reads any result
-back, so chunk k+1's host preprocessing overlaps chunk k's device work
-(CUDA launches are asynchronous; the copies to the host at the end are the
-only synchronisations).
+Both launch every chunk's work before they read any result back, so chunk
+k+1's host preprocessing overlaps chunk k's device work (CUDA launches are
+asynchronous; the copies to the host at the end are the only
+synchronisations).
 """
 
 from __future__ import annotations
@@ -19,18 +23,20 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
-from ..data.collate import DaquarCnnCollate
+from ..data.collate import DaquarCnnCollate, DaquarVitCollate
 from ..data.daquar import Annotation, Question, Sample
+from ..models import generation
 from .predict import convert_logits_to_predictions_topk
 
 CNN_FAMILY = "cnn"
+VIT_FAMILY = "vit"
 
 # collate keys the forward does not take (the eval records, the dummy label)
 _HOST_KEYS = ("answers", "questions", "image_fns", "annotation_ids")
 
 
 class VQAInferenceSession:
-    """Ask (image path, question) pairs against a CNN-family VQA model.
+    """Ask (image path, question) pairs against a CNN- or ViT-family model.
 
     ``state_dict``, when given, is loaded into ``model`` with
     ``strict=True``. The model is moved to ``device`` (default ``"cuda"``,
@@ -43,17 +49,24 @@ class VQAInferenceSession:
                  answer_spaces: Sequence[str], family: str = CNN_FAMILY,
                  batch_size: int = 8, image_size: int = 256,
                  device: DeviceLike = None):
-        if family != CNN_FAMILY:
+        if family not in (CNN_FAMILY, VIT_FAMILY):
             raise NotImplementedError(
-                f"the port serves the {CNN_FAMILY!r} family only, "
-                f"not {family!r}")
+                f"the port serves the {CNN_FAMILY!r} and {VIT_FAMILY!r} "
+                f"families only, not {family!r}")
         self.device = resolve_device(device)
+        self.family = family
         self.answer_spaces = list(answer_spaces)
         self.batch_size = int(batch_size)
-        # uint8 images on the wire; the model divides by 255 on the device
-        self.collate = DaquarCnnCollate(
-            self.answer_spaces, resizing_dimensions=(image_size, image_size),
-            eval_mode=True, emit_uint8=True)
+        # uint8 images on the wire; the model scales (and, for the ViT
+        # family, normalizes) them on the device
+        if family == CNN_FAMILY:
+            self.collate = DaquarCnnCollate(
+                self.answer_spaces,
+                resizing_dimensions=(image_size, image_size),
+                eval_mode=True, emit_uint8=True)
+        else:
+            self.collate = DaquarVitCollate(
+                self.answer_spaces, eval_mode=True, emit_uint8=True)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
@@ -75,6 +88,66 @@ class VQAInferenceSession:
         out: List[dict] = []
         for log_probs, n in pending:
             out.extend(self._decode(log_probs[:n].cpu().numpy(), top_k))
+        return out
+
+    def generate(self, image: str, question: str, num_beams: int = 1,
+                 max_answer_length: int = 5) -> dict:
+        """Single-request generative answer (ViT family)."""
+        return self.generate_batch([(image, question)], num_beams=num_beams,
+                                   max_answer_length=max_answer_length)[0]
+
+    def generate_batch(self, requests: Sequence[Tuple[str, str]],
+                       num_beams: int = 1,
+                       max_answer_length: int = 5) -> List[dict]:
+        """Answers generated over the T5 vocabulary (ViT family): greedy for
+        ``num_beams == 1``, beam search otherwise, continuing the collate's
+        "[Question] {q} [Answer]" prompt. Returns per-request
+        ``{"answer_text", "token_ids"}``, with ``"score"`` for beam search.
+        The hash tokenizer cannot invert word ids, so its ``answer_text``
+        holds ``<id>`` placeholders (a warning says so)."""
+        if self.family != VIT_FAMILY:
+            raise ValueError(
+                f"generate_batch needs the ViT encoder-decoder family (T5 "
+                f"decoder); this session serves a {self.family!r} model: "
+                f"use ask/ask_batch for classification answers")
+        tokenizer = self.collate.tokenizer
+        if str(getattr(tokenizer, "scheme", "")).startswith("hash"):
+            import warnings
+            warnings.warn(
+                "generate_batch: the session's tokenizer is the offline hash "
+                "fallback: generated ids are NOT invertible to text and "
+                "answer_text holds '<id>' placeholders", stacklevel=2)
+        pending = []   # (device tokens, device scores or None, n_valid)
+        for start in range(0, len(requests), self.batch_size):
+            chunk = requests[start:start + self.batch_size]
+            batch = self._to_device(self._collate_chunk(chunk))
+            args = (batch["question_input_ids"],
+                    batch["question_attention_masks"],
+                    batch["decoder_question_input_ids"],
+                    batch["decoder_question_attention_masks"],
+                    batch["pixel_values"])
+            with torch.inference_mode():
+                if num_beams > 1:
+                    tokens, scores = generation.beam_generate(
+                        self.model, *args,
+                        max_answer_length=max_answer_length,
+                        num_beams=num_beams)
+                else:
+                    tokens, scores = generation.greedy_generate(
+                        self.model, *args,
+                        max_answer_length=max_answer_length), None
+            pending.append((tokens, scores, len(chunk)))
+        out: List[dict] = []
+        for tokens, scores, n in pending:
+            tokens = tokens[:n].cpu().numpy()
+            if scores is not None:
+                scores = scores[:n].cpu().numpy()
+            for i in range(n):
+                ids = [int(t) for t in tokens[i] if int(t) != 0]
+                rec = {"answer_text": tokenizer.decode(ids), "token_ids": ids}
+                if scores is not None:
+                    rec["score"] = float(scores[i])
+                out.append(rec)
         return out
 
     # ------------------------------------------------------------- internals

@@ -1,5 +1,7 @@
-"""Models: ResNet backbone, T5 encoder and the CNN-family VQA model."""
+"""Models: ResNet backbone, ViT tower, T5 encoder and decoder, the CNN- and
+ViT-family VQA models, and answer generation."""
 
+from .generation import beam_generate, greedy_generate
 from .image_input import finalize_image_input
 from .resnet import (
     BasicBlock,
@@ -9,10 +11,14 @@ from .resnet import (
     resnet_out_channels,
 )
 from .resnet_vqa import ResnetVQAModel, init_weights
-from .t5 import T5Config, T5Encoder
+from .t5 import T5Config, T5Decoder, T5Encoder, T5ForConditionalGeneration
+from .vit import ViTConfig, ViTModel
+from .vit_vqa import VitVQAModel
 
 __all__ = [
     "BasicBlock", "Bottleneck", "FrozenBatchNorm", "ResNetBackbone",
-    "ResnetVQAModel", "T5Config", "T5Encoder", "finalize_image_input",
+    "ResnetVQAModel", "T5Config", "T5Decoder", "T5Encoder",
+    "T5ForConditionalGeneration", "ViTConfig", "ViTModel", "VitVQAModel",
+    "beam_generate", "finalize_image_input", "greedy_generate",
     "init_weights", "resnet_out_channels",
 ]

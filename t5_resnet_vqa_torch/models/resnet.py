@@ -49,13 +49,18 @@ def resnet_out_channels(variant: str) -> int:
 
 class FrozenBatchNorm(nn.Module):
     """Eval-mode BatchNorm: y = x * scale + bias per channel, with
-    scale = weight / sqrt(running_var + eps), bias = bias - mean * scale."""
+    scale = weight / sqrt(running_var + eps), bias = bias - mean * scale.
+
+    ``weight`` and ``bias`` are parameters and the statistics buffers, under
+    torchvision's keys: a frozen tower (under ``no_grad``, out of the
+    optimizer) never changes them, and a fine-tuned one trains the affine
+    pair as the JAX package trains its folded ``scale`` and ``bias``."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked",

@@ -1,16 +1,22 @@
-"""T5 encoder stack.
+"""T5 encoder and decoder stacks.
 
-PyTorch counterpart of the encoder half of ``t5_resnet_vqa_tpu/models/t5.py``,
-with HF ``T5EncoderModel`` ``state_dict`` keys (``embed_tokens``,
-``block.{i}.layer.0.SelfAttention.q``, ``block.{i}.layer.1.DenseReluDense.wi``,
-``final_layer_norm``):
+PyTorch counterpart of ``t5_resnet_vqa_tpu/models/t5.py``, with HF
+``state_dict`` keys (``embed_tokens``, ``block.{i}.layer.0.SelfAttention.q``,
+``block.{i}.layer.1.DenseReluDense.wi`` in the encoder,
+``block.{i}.layer.1.EncDecAttention.q`` and ``layer.2.DenseReluDense`` in
+the decoder, ``final_layer_norm``):
 
   * RMSNorm (no mean subtraction, no bias), eps 1e-6, fp32 accumulation.
   * Attention WITHOUT 1/sqrt(d) scaling; scores and softmax in fp32.
-  * Relative position bias (32 buckets, max distance 128), owned by block 0;
-    block 0's bias already holds the padding-mask bias and every later
-    block reuses it.
+  * Relative position bias (32 buckets, max distance 128; unidirectional in
+    the decoder), owned by block 0 of a stack; block 0's bias already holds
+    the mask bias (padding; causal AND padding in the decoder) and every
+    later block reuses it. Cross-attention has no relative bias.
   * Pre-norm residual blocks, ReLU feed-forward, bias-free linears.
+  * ``T5ForConditionalGeneration``: encoder and decoder over ONE token
+    table (``shared``, ``encoder.embed_tokens``, ``decoder.embed_tokens``
+    and ``lm_head`` are one ``nn.Parameter``), as the reference's
+    ``T5ForConditionalGeneration`` ties them.
 """
 
 from __future__ import annotations
@@ -94,6 +100,17 @@ def attention_mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - attention_mask.float()) * _NEG_INF)[:, None, None, :]
 
 
+def causal_mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """[B, S] 1/0 mask -> additive causal [B, 1, S, S] fp32 bias (HF decoder
+    semantics: the causal triangle AND the padding mask)."""
+    S = attention_mask.shape[1]
+    causal = torch.ones((S, S), dtype=torch.bool,
+                        device=attention_mask.device).tril()
+    keep = causal[None] & (attention_mask[:, None, :] > 0)
+    zero = torch.zeros((), device=attention_mask.device)
+    return torch.where(keep, zero, _NEG_INF)[:, None]
+
+
 class T5Attention(nn.Module):
     def __init__(self, config: T5Config,
                  has_relative_attention_bias: bool = False,
@@ -126,45 +143,67 @@ class T5Attention(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 position_bias: Optional[torch.Tensor] = None,
-                mask_bias: Optional[torch.Tensor] = None
+                mask_bias: Optional[torch.Tensor] = None,
+                key_value_states: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (output, position_bias)."""
+        """Returns (output, position_bias). With ``key_value_states`` the
+        keys and values come from it (cross-attention), and the bias is
+        [1, H, Sq, Sk]."""
         cfg = self.config
-        B, S = hidden_states.shape[:2]
+        B, Sq = hidden_states.shape[:2]
+        kv = hidden_states if key_value_states is None else key_value_states
+        Sk = kv.shape[1]
 
-        def heads(proj):
-            return proj(hidden_states).reshape(
-                B, S, cfg.num_heads, cfg.d_kv).transpose(1, 2)
+        def heads(proj, x):
+            return proj(x).reshape(B, -1, cfg.num_heads,
+                                   cfg.d_kv).transpose(1, 2)
 
-        qh, kh, vh = heads(self.q), heads(self.k), heads(self.v)
+        qh = heads(self.q, hidden_states)
+        kh, vh = heads(self.k, kv), heads(self.v, kv)
         # fp32 scores and P.V, also under a bf16 autocast
         with torch.autocast(qh.device.type, enabled=False):
             scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
             if position_bias is None:
                 if self.relative_attention_bias is not None:
-                    position_bias = self.compute_bias(S, S)
+                    position_bias = self.compute_bias(Sq, Sk)
                 else:
-                    position_bias = torch.zeros((1, cfg.num_heads, S, S),
+                    position_bias = torch.zeros((1, cfg.num_heads, Sq, Sk),
                                                 device=scores.device)
                 if mask_bias is not None:
                     position_bias = position_bias + mask_bias
             att = torch.softmax(scores + position_bias, dim=-1).to(qh.dtype)
             att = self.dropout(att)
             out = torch.matmul(att.float(), vh.float()).to(qh.dtype)
-        out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.d_kv)
+        out = out.transpose(1, 2).reshape(B, Sq, cfg.num_heads * cfg.d_kv)
         return self.o(out), position_bias
 
 
 class T5LayerSelfAttention(nn.Module):
-    def __init__(self, config: T5Config, has_relative_attention_bias: bool):
+    def __init__(self, config: T5Config, has_relative_attention_bias: bool,
+                 bidirectional: bool = True):
         super().__init__()
-        self.SelfAttention = T5Attention(config, has_relative_attention_bias)
+        self.SelfAttention = T5Attention(config, has_relative_attention_bias,
+                                         bidirectional)
         self.layer_norm = RMSNorm(config.d_model, config.layer_norm_epsilon)
         self.dropout = nn.Dropout(config.dropout_rate)
 
     def forward(self, x, position_bias=None, mask_bias=None):
         att, position_bias = self.SelfAttention(
             self.layer_norm(x), position_bias, mask_bias)
+        return x + self.dropout(att), position_bias
+
+
+class T5LayerCrossAttention(nn.Module):
+    def __init__(self, config: T5Config):
+        super().__init__()
+        self.EncDecAttention = T5Attention(config)
+        self.layer_norm = RMSNorm(config.d_model, config.layer_norm_epsilon)
+        self.dropout = nn.Dropout(config.dropout_rate)
+
+    def forward(self, x, memory, position_bias=None, mask_bias=None):
+        att, position_bias = self.EncDecAttention(
+            self.layer_norm(x), position_bias, mask_bias,
+            key_value_states=memory)
         return x + self.dropout(att), position_bias
 
 
@@ -205,13 +244,37 @@ class T5Block(nn.Module):
         return self.layer[1](x), position_bias
 
 
-class T5Encoder(nn.Module):
-    """Encoder stack with its own token table (HF T5EncoderModel layout)."""
+class T5DecoderBlock(nn.Module):
+    """Decoder block: causal self-attention, cross-attention over the
+    encoder memory, then feed-forward."""
 
-    def __init__(self, config: T5Config):
+    def __init__(self, config: T5Config,
+                 has_relative_attention_bias: bool = False):
+        super().__init__()
+        self.layer = nn.ModuleList([
+            T5LayerSelfAttention(config, has_relative_attention_bias,
+                                 bidirectional=False),
+            T5LayerCrossAttention(config),
+            T5LayerFF(config)])
+
+    def forward(self, x, memory, position_bias=None, mask_bias=None,
+                encdec_bias=None, memory_mask_bias=None):
+        x, position_bias = self.layer[0](x, position_bias, mask_bias)
+        x, encdec_bias = self.layer[1](x, memory, encdec_bias,
+                                       memory_mask_bias)
+        return self.layer[2](x), position_bias, encdec_bias
+
+
+class T5Encoder(nn.Module):
+    """Encoder stack (HF T5EncoderModel layout). It owns its token table,
+    unless ``embed_tokens`` hands it one to share."""
+
+    def __init__(self, config: T5Config,
+                 embed_tokens: Optional[nn.Embedding] = None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.d_model)
+        self.embed_tokens = (embed_tokens if embed_tokens is not None else
+                             nn.Embedding(config.vocab_size, config.d_model))
         self.block = nn.ModuleList([
             T5Block(config, has_relative_attention_bias=(i == 0))
             for i in range(config.num_layers)])
@@ -229,3 +292,57 @@ class T5Encoder(nn.Module):
         for block in self.block:
             x, position_bias = block(x, position_bias, mask_bias)
         return self.dropout(self.final_layer_norm(x))
+
+
+class T5Decoder(nn.Module):
+    """Decoder stack over an encoder memory (HF T5Stack decoder layout). It
+    owns its token table, unless ``embed_tokens`` hands it one to share."""
+
+    def __init__(self, config: T5Config,
+                 embed_tokens: Optional[nn.Embedding] = None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = (embed_tokens if embed_tokens is not None else
+                             nn.Embedding(config.vocab_size, config.d_model))
+        self.block = nn.ModuleList([
+            T5DecoderBlock(config, has_relative_attention_bias=(i == 0))
+            for i in range(config.num_decoder_layers)])
+        self.final_layer_norm = RMSNorm(config.d_model,
+                                        config.layer_norm_epsilon)
+        self.dropout = nn.Dropout(config.dropout_rate)
+
+    def forward(self, input_ids: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                encoder_attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = self.dropout(self.embed_tokens(input_ids.long()))
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        mask_bias = causal_mask_bias(attention_mask)
+        memory_mask_bias = (attention_mask_bias(encoder_attention_mask)
+                            if encoder_attention_mask is not None else None)
+        position_bias = encdec_bias = None
+        for block in self.block:
+            x, position_bias, encdec_bias = block(
+                x, encoder_hidden_states, position_bias, mask_bias,
+                encdec_bias, memory_mask_bias)
+        return self.dropout(self.final_layer_norm(x))
+
+
+class T5ForConditionalGeneration(nn.Module):
+    """Encoder, decoder and LM head over one tied token table, in HF
+    ``T5ForConditionalGeneration`` keys. ``shared.weight``,
+    ``encoder.embed_tokens.weight``, ``decoder.embed_tokens.weight`` and
+    ``lm_head.weight`` are one parameter, so a strict load of the four tied
+    keys fills one table."""
+
+    def __init__(self, config: T5Config):
+        super().__init__()
+        self.config = config
+        self.shared = nn.Embedding(config.vocab_size, config.d_model)
+        self.encoder = T5Encoder(config, embed_tokens=self.shared)
+        self.decoder = T5Decoder(config, embed_tokens=self.shared)
+        self.lm_head = nn.Linear(config.d_model, config.vocab_size,
+                                 bias=False)
+        self.lm_head.weight = self.shared.weight

@@ -1,8 +1,8 @@
 """Model factory: config -> model instance and collate family.
 
 PyTorch counterpart of the JAX package's ``train/factory.py``. The port has
-the CNN family's ResNet towers; the other families raise
-``NotImplementedError`` naming their ROADMAP item.
+the CNN family's ResNet towers and the ViT + T5 encoder-decoder family; the
+other families raise ``NotImplementedError`` naming their ROADMAP item.
 
 The model is built in fp32 whatever ``compute_dtype`` says: the trainer
 keeps fp32 master weights and computes in bf16 under autocast. The
@@ -19,7 +19,7 @@ from torch import nn
 
 from ..core.config import ModelConfig
 from ..core.device import DeviceLike
-from ..models import ResnetVQAModel, T5Config
+from ..models import ResnetVQAModel, T5Config, VitVQAModel
 from ..ops import AttentionConfig
 
 CNN_FAMILY = "cnn"
@@ -28,7 +28,6 @@ CROSS_FAMILY = "cross_attention"
 
 _NOT_PORTED = {
     "faster-rcnn": "the Faster-RCNN family (ROADMAP.md, modules item 9)",
-    VIT_FAMILY: "the ViT + T5 family (ROADMAP.md, modules item 10)",
     CROSS_FAMILY: "the CrossAttention family (ROADMAP.md, modules item 11)",
 }
 
@@ -54,6 +53,13 @@ def build_model(model_cfg: ModelConfig, num_answers: int,
     if missing is not None:
         raise NotImplementedError(f"{name!r} needs {missing}, which the "
                                   f"port does not have yet")
+    if family == VIT_FAMILY:
+        model = VitVQAModel(
+            num_answers, temperature_scaler=model_cfg.temperature_scaler,
+            t5_config=T5Config.t5_base(),
+            fine_tune_vision=model_cfg.fine_tune_vision, use_kernels=True,
+            device=device, generator=generator)
+        return model, family
     model = ResnetVQAModel(
         num_answers, temperature_scaler=model_cfg.temperature_scaler,
         vision_model_name=name, t5_config=T5Config.t5_base(),

@@ -3,8 +3,9 @@ port's ``state_dict``, which is the reference's own layout.
 
 A copy of the numpy-only exporters of
 ``t5_resnet_vqa_tpu/utils/torch_export.py`` that
-``export_resnet_vqa_checkpoint`` needs; the port keeps its own copy so that
-it never imports the JAX package. Conventions:
+``export_resnet_vqa_checkpoint`` and ``export_vit_vqa_checkpoint`` need; the
+port keeps its own copy so that it never imports the JAX package.
+Conventions:
 
   * flax Dense kernel [in, out]  -> Linear weight [out, in]
   * flax Conv kernel HWIO        -> Conv2d weight OIHW
@@ -13,12 +14,14 @@ it never imports the JAX package. Conventions:
   * folded FrozenBatchNorm (scale, bias) -> BatchNorm with weight=scale,
     bias=bias, running_mean=0, running_var=1-eps (eval-mode identical)
   * modules the reference holds but never uses (the unused projection twin,
-    the backbone's ``fc``) are zeros, so strict loading succeeds.
+    the backbone's ``fc``) are zeros, so strict loading succeeds;
+  * the ViT family's one tied T5 table is written under all four of HF's
+    tied keys, as one tensor.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -136,8 +139,9 @@ def _export_t5_attention(out, tree, prefix: str) -> None:
 
 
 def export_t5_encoder(out, tree, num_layers: int, prefix: str = "encoder",
-                      shared_key: str = "shared.weight") -> None:
-    out[shared_key] = _t(tree["shared"]["embedding"])
+                      shared_key: Optional[str] = "shared.weight") -> None:
+    if shared_key is not None:       # None: the caller writes the tied table
+        out[shared_key] = _t(tree["shared"]["embedding"])
     export_rmsnorm(out, tree["final_layer_norm"],
                    f"{prefix}.final_layer_norm")
     for i in range(num_layers):
@@ -150,6 +154,59 @@ def export_t5_encoder(out, tree, num_layers: int, prefix: str = "encoder",
         export_linear(out, blk["ff"]["wi"], f"{b}.layer.1.DenseReluDense.wi")
         export_linear(out, blk["ff"]["wo"], f"{b}.layer.1.DenseReluDense.wo")
         export_rmsnorm(out, blk["ff_layer_norm"], f"{b}.layer.1.layer_norm")
+
+
+def export_t5_decoder(out, tree, num_layers: int, prefix: str = "decoder",
+                      shared_key: Optional[str] = "shared.weight") -> None:
+    if shared_key is not None:       # None: the caller writes the tied table
+        out[shared_key] = _t(tree["shared"]["embedding"])
+    export_rmsnorm(out, tree["final_layer_norm"],
+                   f"{prefix}.final_layer_norm")
+    for i in range(num_layers):
+        blk = tree[f"block_{i}"]
+        b = f"{prefix}.block.{i}"
+        _export_t5_attention(out, blk["self_attn"],
+                             f"{b}.layer.0.SelfAttention")
+        export_rmsnorm(out, blk["self_attn_layer_norm"],
+                       f"{b}.layer.0.layer_norm")
+        _export_t5_attention(out, blk["cross_attn"],
+                             f"{b}.layer.1.EncDecAttention")
+        export_rmsnorm(out, blk["cross_attn_layer_norm"],
+                       f"{b}.layer.1.layer_norm")
+        export_linear(out, blk["ff"]["wi"], f"{b}.layer.2.DenseReluDense.wi")
+        export_linear(out, blk["ff"]["wo"], f"{b}.layer.2.DenseReluDense.wo")
+        export_rmsnorm(out, blk["ff_layer_norm"], f"{b}.layer.2.layer_norm")
+
+
+def export_vit_embeddings(out, tree, prefix: str = "embeddings") -> None:
+    _put(out, prefix, "cls_token", _t(tree["cls_token"]))
+    _put(out, prefix, "position_embeddings",
+         _t(tree["position_embeddings"]))
+    export_conv2d(out, tree["patch_embeddings"],
+                  f"{prefix}.patch_embeddings.projection")
+
+
+def export_vit_layer(out, tree, prefix: str) -> None:
+    att = tree["attention"]
+    export_linear(out, att["query"], f"{prefix}.attention.attention.query")
+    export_linear(out, att["key"], f"{prefix}.attention.attention.key")
+    export_linear(out, att["value"], f"{prefix}.attention.attention.value")
+    export_linear(out, att["out"], f"{prefix}.attention.output.dense")
+    export_layernorm(out, tree["layernorm_before"],
+                     f"{prefix}.layernorm_before")
+    export_layernorm(out, tree["layernorm_after"],
+                     f"{prefix}.layernorm_after")
+    export_linear(out, tree["intermediate"], f"{prefix}.intermediate.dense")
+    export_linear(out, tree["output"], f"{prefix}.output.dense")
+
+
+def export_vit(out, tree, num_layers: int, prefix: str = "") -> None:
+    p = f"{prefix}." if prefix else ""
+    export_vit_embeddings(out, tree, f"{p}embeddings")
+    export_layernorm(out, tree["layernorm"], f"{p}layernorm")
+    export_linear(out, tree["pooler"], f"{p}pooler.dense")
+    for i in range(num_layers):
+        export_vit_layer(out, tree[f"layer_{i}"], f"{p}encoder.layer.{i}")
 
 
 def state_dict_from_jax(params: Mapping[str, Any], variant: str,
@@ -174,5 +231,28 @@ def state_dict_from_jax(params: Mapping[str, Any], variant: str,
                       shared_key="lang_model.embed_tokens.weight")
     export_sga_stack(out, params["sga_modules"], num_attention_blocks)
     export_attention_pooler(out, params["attention_pooler"])
+    export_linear(out, params["classification_layer"], "classification_layer")
+    return out
+
+
+def vit_state_dict_from_jax(params: Mapping[str, Any],
+                            num_vit_layers: int = 12,
+                            num_t5_layers: int = 12
+                            ) -> Dict[str, torch.Tensor]:
+    """VitVQAModel params (JAX layout) -> the port's ``state_dict``
+    (``VitVQAModel.load_state_dict(..., strict=True)`` takes it): the
+    counterpart of ``export_vit_vqa_checkpoint``."""
+    out: Dict[str, Any] = {}
+    export_vit(out, params["vision_model"], num_vit_layers,
+               prefix="vision_model")
+    export_t5_encoder(out, params["lang_encoder"], num_t5_layers,
+                      prefix="lang_model.encoder", shared_key=None)
+    export_t5_decoder(out, params["lang_decoder"], num_t5_layers,
+                      prefix="lang_model.decoder", shared_key=None)
+    shared = _t(params["shared"]["embedding"])
+    for key in ("shared", "encoder.embed_tokens", "decoder.embed_tokens",
+                "lm_head"):
+        out[f"lang_model.{key}.weight"] = shared
+    export_linear(out, params["fusing_layer"], "fusing_layer.0")
     export_linear(out, params["classification_layer"], "classification_layer")
     return out

@@ -132,7 +132,8 @@ def test_fold_matches_jax_fold():
     want = (kernel * params["bn2"]["scale"]).reshape(-1, kernel.shape[-1])
     np.testing.assert_allclose(w2.detach().numpy(), want, rtol=1e-6,
                                atol=1e-7)
-    np.testing.assert_allclose(b2.numpy(), params["bn2"]["bias"], atol=1e-7)
+    np.testing.assert_allclose(b2.detach().numpy(), params["bn2"]["bias"],
+                               atol=1e-7)
 
 
 def test_wrapper_rejects_other_devices():

@@ -20,7 +20,12 @@ import torch
 import t5_resnet_vqa_torch
 from t5_resnet_vqa_torch.core import resolve_device
 from t5_resnet_vqa_torch.eval import VQAInferenceSession
-from t5_resnet_vqa_torch.models import ResnetVQAModel, T5Config
+from t5_resnet_vqa_torch.models import (
+    ResnetVQAModel,
+    T5Config,
+    ViTConfig,
+    VitVQAModel,
+)
 from t5_resnet_vqa_torch.ops import AttentionConfig
 
 PKG_DIR = os.path.dirname(t5_resnet_vqa_torch.__file__)
@@ -51,7 +56,8 @@ SOURCES = sorted(_sources())
 def test_package_has_sources():
     names = {os.path.relpath(p, PKG_DIR) for p in SOURCES}
     for rel in ("ops/attention.py", "ops/bottleneck.py", "ops/layers.py",
-                "models/resnet_vqa.py", "eval/session.py",
+                "models/resnet_vqa.py", "models/vit.py",
+                "models/vit_vqa.py", "models/generation.py", "eval/session.py",
                 "utils/weights.py", "core/constants.py", "core/config.py",
                 "data/pipeline.py", "eval/wups.py", "train/trainer.py",
                 "train/optimizer.py", "train/__main__.py"):
@@ -155,3 +161,23 @@ def test_kernel_error_codes_raise():
     kernel_build.check(0, "ok")
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         kernel_build.check(98, "attention_forward")
+
+
+def _tiny_vit_model(**kw):
+    return VitVQAModel(5, t5_config=T5Config(vocab_size=64, d_model=32,
+                                             d_kv=8, d_ff=32, num_layers=1,
+                                             num_decoder_layers=1,
+                                             num_heads=4),
+                       vit_config=ViTConfig.tiny(), **kw)
+
+
+def test_vit_model_and_session_raise_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _tiny_vit_model()
+    model = _tiny_vit_model(device="cpu")
+    assert model.classification_layer.weight.is_cpu
+    answers = ["a", "b", "c", "d", "e"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VQAInferenceSession(model, None, answers, "vit")
+    session = VQAInferenceSession(model, None, answers, "vit", device="cpu")
+    assert session.device.type == "cpu"

@@ -149,5 +149,5 @@ def test_session_model_is_in_eval_mode(sessions):
 def test_session_refuses_other_families(sessions):
     _, port_session, answers, _ = sessions
     with pytest.raises(NotImplementedError, match="cnn"):
-        VQAInferenceSession(port_session.model, None, answers, "vit",
-                            device="cpu")
+        VQAInferenceSession(port_session.model, None, answers,
+                            "cross_attention", device="cpu")

@@ -18,7 +18,19 @@ backbone's ``fc``) must stay bitwise unchanged.
 
 The fine-tuned tower: with ``fine_tune_vision`` every vision parameter that
 the forward reads gets a gradient, with the kernel routes on, and the
-gradients match ``jax.grad`` of the JAX model to 1e-4 relative.
+gradients match ``jax.grad`` of the JAX model to 1e-4 relative. Its
+BatchNorms' affine pairs train as the JAX package's folded ``scale`` and
+``bias`` do: ResNet-18 + the same small T5 and SGA, 2 steps at a tower LR
+of 2e-4, and the updates compared, not the values (AdamW moves an element
+by about its LR, far below a value tolerance at weights near 1). Each
+BatchNorm weight's and bias's update must match the JAX one within 0.1 LR,
+which a missing weight decay (0.15 LR at a weight of 1) would exceed. The
+exception is an element whose clipped gradient, read from the port's first
+moments, is under twice AdamW's eps (1e-8) at either step: there the update
+follows the gradient's size, and the ~1e-8 summation noise of the stem's
+gradients moves it (or flips its sign), so such an element is held to
+0.25 LR. Those are under two thirds of the elements, and an element that
+JAX moved by more than 1.2 LR must move the same way in the port.
 """
 
 import jax
@@ -67,8 +79,8 @@ OPT_KW = dict(type="AdamW", vision_lr=8e-3, lm_encoder_lr=1e-3,
               kwargs={"weight_decay": 0.1, "amsgrad": True})
 
 
-def _jax_model(fine_tune_vision=False):
-    return JaxModel(answer_spaces=ANSWERS, vision_model_name="resnet50",
+def _jax_model(fine_tune_vision=False, variant="resnet50"):
+    return JaxModel(answer_spaces=ANSWERS, vision_model_name=variant,
                     t5_config=JaxT5Config(**T5_KW),
                     num_attention_blocks=BLOCKS,
                     sga_config=JaxAttentionConfig(**SGA_KW),
@@ -291,3 +303,75 @@ def test_fused_stage_refuses_to_drop_a_gradient():
         K.fused_bottleneck_packed(h, block.fused)
     with pytest.raises(RuntimeError, match="no backward"):
         K.fused_bottleneck(h, *block.fused_operands(torch.float32))
+
+
+def test_fine_tuned_batchnorm_affine_trains_as_jax():
+    rng = np.random.default_rng(1)
+    batches = _batches(rng)[:2]
+    lr = 2e-4
+    opt_kw = {**OPT_KW, "vision_lr": lr}
+    jmodel = _jax_model(fine_tune_vision=True, variant="resnet18")
+    params = _random_params(jmodel, batches[0], rng)
+    tx, _, _ = jax_build(JaxOptCfg(**opt_kw), JaxSchedCfg(num_warmup_steps=0),
+                         len(batches), gradient_clipping=1.0,
+                         frozen_modules=jmodel.frozen_modules())
+    step = jax.jit(jax_step(jmodel, tx))
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    state = tx.init(p)
+    for batch in batches:
+        p, state, _, _ = step(p, state, batch, jax.random.PRNGKey(1))
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, p),
+                               "resnet18", BLOCKS, T5_KW["num_layers"])
+
+    model = ResnetVQAModel(ANSWERS, vision_model_name="resnet18",
+                           t5_config=T5Config(**T5_KW),
+                           num_attention_blocks=BLOCKS,
+                           sga_config=AttentionConfig(**SGA_KW),
+                           fine_tune_vision=True, device="cpu")
+    model.load_state_dict(state_dict_from_jax(params, "resnet18", BLOCKS,
+                                              T5_KW["num_layers"]),
+                          strict=True)
+    model.train()
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    optimizer, scheduler, _, trainable = build_optimizer(
+        model, OptimizerConfig(**opt_kw),
+        LRSchedulerConfig(num_warmup_steps=0), len(batches),
+        frozen_modules=model.frozen_modules())
+    port_step = make_train_step(model, optimizer, scheduler, trainable, 1.0)
+    params_by_name = dict(model.named_parameters())
+    first_moments = []
+    for batch in batches:
+        port_step(_torch_batch(batch))
+        first_moments.append({
+            n: optimizer.state[p]["exp_avg"].clone()
+            for n, p in params_by_name.items() if p in optimizer.state})
+
+    got = model.state_dict()
+    affine = [k for k in got if k.startswith("vision_model.")
+              and (".bn" in k or "downsample.1" in k)
+              and k.rsplit(".", 1)[1] in ("weight", "bias")]
+    assert len(affine) == 2 * 20                    # 20 BatchNorms
+    eps = optimizer.param_groups[0]["eps"]
+    beta1 = optimizer.param_groups[0]["betas"][0]
+    near_zero = 0
+    for name in affine:
+        assert not torch.equal(got[name], initial[name]), name
+        m1, m2 = first_moments[0][name], first_moments[1][name]
+        # the clipped gradients AdamW saw at the two steps
+        g1 = m1 / (1 - beta1)
+        g2 = (m2 - beta1 * m1) / (1 - beta1)
+        noisy = (torch.minimum(g1.abs(), g2.abs()) < 2 * eps).numpy()
+        near_zero += int(noisy.sum())
+        ours = (got[name] - initial[name]).numpy()
+        theirs = want[name].numpy() - initial[name].numpy()
+        gap = np.abs(ours - theirs)
+        assert gap[~noisy].max() <= 0.1 * lr, (name, gap[~noisy].max() / lr)
+        assert gap[noisy].max(initial=0.0) <= 0.25 * lr, (
+            name, gap[noisy].max() / lr)
+        # the schedule's 2 steps take lr, then lr / 2: a move past 1.2 lr
+        # went the same way in both
+        steady = np.abs(theirs) > 1.2 * lr
+        assert steady.any(), name
+        assert (np.sign(ours[steady]) == np.sign(theirs[steady])).all(), name
+    # most elements are held to the tight bound
+    assert near_zero < 2 * sum(got[n].numel() for n in affine) // 3
