@@ -20,9 +20,10 @@ Phases (each raises on failure; nothing is caught):
               module packed once (``Bottleneck.fused``), as on the main
               path, and its line gives the weight bytes the design streams
               from L2 per launch (``weight_stream_mb``, from the shapes).
-              At the SGA shapes the attention kernel's backward (the VJP of
-              the plain version) is held against autograd of the plain
-              version on head views, and timed (``bwd_ms``).
+              The attention kernel's backward (the VJP of the plain
+              version) is held against autograd of the plain version on
+              head views, and timed (``bwd_ms``), at the SGA shapes and at
+              the ViT shape (``vit_bwd_ms``).
 3. serve   -- the port's main path at full width: ResNet-50 + T5-base
               (12 layers, d_model 768) + 3 SGA blocks (H=8, D=96), 170
               answers, bf16, random weights from a seeded generator, behind
@@ -52,23 +53,43 @@ Phases (each raises on failure; nothing is caught):
               fp32 (tokens equal, beam scores within 1e-4); in bf16 the
               share of equal greedy tokens is printed. Then ``ask_batch``
               and ``generate_batch`` times with the kernels on and off in
-              turns, and a profile of one forward of each (device time and
-              launches of the tower, the T5 encoder, the decoder and the
-              forward; idle share) and of one greedy and one beam
-              ``generate_batch`` of each (device time, launches, idle
-              share).
-5. train   -- the training path at the same width, B=64, bf16 compute
-              with fp32 master weights: one epoch (8 train and 2 test
-              batches) through ``VQATrainer`` with the reference config's
-              optimizer and dropout, checking finite losses, launches per
-              step (7 bottleneck and 0 attention per train step, 6 and 7
-              per eval forward), the WUPS line, the validation predictions
-              and a strict reload of ``best-model.pt``; kernels on against
-              off at dropout 0 (5 bf16 steps; 3 fp32 steps on a repeated
-              batch, whose loss must fall; 6 attention launches per step);
-              then train-step timings with the kernels on and off in turns
-              and a profile of each (device time and launches of the
-              tower, the text tower, the forward and the step; idle share).
+              turns, VIT_ROUNDS times each, and a profile of one forward of
+              each (device time and launches of the tower, the T5 encoder,
+              the decoder and the forward; idle share) and of one greedy
+              and one beam ``generate_batch`` of each (device time,
+              launches, idle share).
+5. train   -- the CNN family's training path at the same width, B=64,
+              bf16 compute with fp32 master weights: one epoch (8 train and
+              2 test batches) through ``VQATrainer`` with the reference
+              config's optimizer, dropout and frozen-feature cache, checking
+              finite losses, the launches (21 bottleneck for the cache's
+              build over 192 images in 3 chunks of 64; 0 and 0 per train
+              step; 6 attention and 0 bottleneck per eval forward), the log
+              lines, the validation predictions and a strict reload of
+              ``best-model.pt``; the cache on against off over 2 steps at
+              dropout 0 (losses within 2e-4 relative); kernels on against
+              off at dropout 0 with the cache off (5 bf16 steps; 3 fp32
+              steps on a repeated batch, whose loss must fall; 6 attention
+              and 7 bottleneck launches per step); then train-step timings
+              with the cache off (so that the bottleneck kernel runs in the
+              timed step) with the kernels on and off in turns, and a
+              profile of each (device time and launches of the tower, the
+              text tower, the forward and the step; idle share).
+6. train_vit -- the ViT family's training path at full width (ViT-base +
+              T5-base encoder-decoder, 170 answers, B=64, bf16 compute with
+              fp32 master weights, 224^2 seeded uint8 images): one epoch
+              through ``VQATrainer`` with the reference config's optimizer,
+              production dropout (T5 0.1, fusing layer 0.5) and the cache on
+              (36 attention launches for the build, 0 per step), checking
+              the log lines, the validation predictions and a strict reload
+              of ``best-model.pt``; the cache on against off over 2 steps
+              at dropout 0; kernels on against off at dropout 0 with the
+              cache off (12 attention launches per step; bf16 over 5 steps,
+              fp32 over 3 on a repeated batch); 2 steps of a fine-tuned
+              tower with the kernels on and off (12 kernel forwards per
+              step and their backward); then train-step timings of the
+              cached, the cache-off and the fine-tuned variants in turns,
+              and a profile of each.
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
@@ -76,8 +97,10 @@ nvidia-smi reports them, then the kernels line, and last
 
 In the kernels line, ``launches`` is the count over the three served
 forwards of the CNN family (``vit_launches`` over the ViT family's three,
-``train_epoch_launches`` over the training epoch,
-``train_launches_per_step`` with the production dropout and at 0);
+``train_epoch_launches`` and ``vit_train_epoch_launches`` over each
+family's training epoch, the cache's build included,
+``train_launches_per_step`` and ``vit_train_launches_per_step`` per step of
+each variant and for the cache's build);
 ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms`` and attention's
 ``bwd_ms`` are per forward (``bound_share`` is ``bound_ms / ms``):
 the bf16 times of the kernel phase summed over the shapes one
@@ -85,10 +108,11 @@ forward launches (attention: 5 at Sk=16 and 1 at Sk=64; bottleneck: the
 seven blocks of stages 0 and 1); ``max_abs_err`` is the largest of those
 cases. Attention's ``vit_ms``, ``vit_plain_ms``, ``vit_bound_ms`` and
 ``vit_library_ms`` are per launch at the ViT shape (B=64, H=12, S=197,
-D=64, bf16). Bounds are the larger of bytes over 3.35 TB/s and FLOPs over
+D=64, bf16), and so are ``vit_bwd_ms`` and ``vit_plain_bwd_ms``. Bounds are the larger of bytes over 3.35 TB/s and FLOPs over
 the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32), H100 SXM data sheet.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -110,14 +134,19 @@ LOGPROB_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 DEVICE = "cuda"
 BATCH = 64
 CHUNKS = 3
-ROUNDS = 20            # timed ask_batch rounds per configuration
-VIT_ROUNDS = 10        # timed rounds of the ViT phase, per configuration
+# timed rounds per configuration of the serving phases (20 and 10 before
+# the ViT family's training phase joined the run; lowered to keep the whole
+# run near 450 s)
+ROUNDS = 10            # ask_batch, CNN family
+VIT_ROUNDS = 6         # ask_batch and generate_batch, ViT family
 GEN_TOKENS = 5         # generate_batch: answer length and beams
 GEN_BEAMS = 3
 BEAM_SCORE_TOL = 1e-4  # fp32 beam scores, kernels on against off
 PROFILE_TRIES = 3
 ANSWERS = 170          # the DAQUAR answer-space size
 IMAGE = 256
+VIT_IMAGE = 224
+VIT_NAME = "google/vit-base-patch16-224-in21k"
 
 TRAIN_BATCHES = 8      # the train phase's epoch: 8 train and 2 test batches
 TEST_BATCHES = 2
@@ -125,6 +154,11 @@ DISTINCT_IMAGES = 96   # per split; DAQUAR asks several questions per image
 BF16_STEPS = 5         # kernels on against off, dropout 0
 FP32_STEPS = 3
 TRAIN_ROUNDS = 20      # timed train steps per configuration, in turns
+# profiled train steps per configuration: the device's idle share and the
+# step's busy time and launches (10 before the ViT family's training phase
+# joined the run; the profiler's bookkeeping of a step's ~3000-6000 kernels
+# and their host operators took ~5 s per step)
+TRAIN_WINDOW = 3
 # kernels on against off, same weights and batches, dropout 0. bf16: the
 # mean NLL may differ by what the forward's log-probs may (LOGPROB_TOL, the
 # serve phase's: t1/t2 and the probabilities re-rounded to bf16 in other
@@ -141,9 +175,20 @@ UPDATE_TOL = 1e-2
 # the comparisons' LRs: small enough for 5 bf16 steps to stay comparable,
 # large enough (the classifier's) for the loss on a repeated batch to fall
 PARITY_LRS = {"lm_encoder_lr": 1e-4, "fusion_lr": 1e-4, "classifier_lr": 1e-3}
+CACHE_STEPS = 2        # the cache on against off, dropout 0
+# losses with the cache on against off, relative: the cache holds the
+# tower's own features, so only sums in another order may differ (the JAX
+# package's bound for the same comparison, tests/test_feature_cache.py:141)
+CACHE_TOL = 2e-4
+FINE_TUNED_STEPS = 2
+
+
+T0 = time.perf_counter()
 
 
 def emit(record: dict) -> None:
+    """One JSON line, with the seconds since the script started."""
+    record["elapsed_s"] = time.perf_counter() - T0
     print(json.dumps(record), flush=True)
 
 
@@ -268,9 +313,10 @@ def phase_attention(torch):
                     "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                     "bound_share": max(t_bytes, t_ops) / ms,
                     "bound_by": bound_by(t_bytes, t_ops)}
-            if n_fwd:           # the SGA shapes: the training path's too
-                line.update(attention_backward(torch, A, B, H, Sq, Sk, D,
-                                               dtype, dtype_name, name))
+            # every shape is on a training path: the SGA's at dropout 0,
+            # the ViT's with the cache off or a fine-tuned tower
+            line.update(attention_backward(torch, A, B, H, Sq, Sk, D,
+                                           dtype, dtype_name, name))
             emit(line)
             if dtype_name == "bfloat16" and name == "vit_s197":
                 per_forward["vit"] = {
@@ -278,7 +324,9 @@ def phase_attention(torch):
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": bound_by(t_bytes, t_ops),
-                    "max_abs_err": abs_err}
+                    "max_abs_err": abs_err, "bwd_ms": line["bwd_ms"],
+                    "plain_bwd_ms": line["plain_bwd_ms"],
+                    "bwd_max_abs_err": line["bwd_max_abs_err"]}
             if dtype_name == "bfloat16" and n_fwd:
                 per_forward["ms"] += n_fwd * ms
                 per_forward["plain_ms"] += n_fwd * plain_ms
@@ -295,7 +343,8 @@ def phase_attention(torch):
 
 def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
     """The kernel's backward (the VJP of the plain version) through the
-    head views of [B, S, H*D] projections, as the SGA blocks hand them over,
+    head views of [B, S, H*D] projections, as the SGA blocks and the ViT
+    hand them over,
     against ``torch.autograd.grad`` of the plain version on the same inputs;
     with the device ms of each backward (the graph kept and run again)."""
     g = torch.Generator(device=DEVICE).manual_seed(6)
@@ -602,14 +651,19 @@ def phase_breakdown(torch, phase, label, parts, card):
     return line
 
 
-def _build_vit_model(torch, dtype, use_kernels):
+def _build_vit_model(torch, dtype, use_kernels, dropout=True,
+                     fine_tune_vision=False):
     """ViT-base + T5-base encoder-decoder at full width, weights from a
-    generator seeded with 0."""
-    from t5_resnet_vqa_torch.models import VitVQAModel
+    generator seeded with 0; ``dropout=False`` sets the T5 and fusing-layer
+    dropout rates to 0."""
+    from t5_resnet_vqa_torch.models import T5Config, VitVQAModel
 
+    rates = {} if dropout else {"fusing_dropout": 0.0}
     return VitVQAModel(ANSWERS, use_kernels=use_kernels, dtype=dtype,
-                       device=DEVICE,
-                       generator=torch.Generator().manual_seed(0))
+                       t5_config=T5Config(**({} if dropout else
+                                             {"dropout_rate": 0.0})),
+                       fine_tune_vision=fine_tune_vision, device=DEVICE,
+                       generator=torch.Generator().manual_seed(0), **rates)
 
 
 def _generate(session, requests, num_beams):
@@ -875,10 +929,28 @@ def profile_device(torch, fn, iters: int = 1) -> dict:
             "kernels": kernels}
 
 
-def train_data(n_train, n_test):
+@contextlib.contextmanager
+def seeded_images(load_images):
+    """Every collate's image loading is ``load_images`` inside the block:
+    the card's machine has no image decoder, so seeded uint8 images stand
+    in for the files (the CPU tests cover decoding). A trainer builds its
+    collates and its feature cache in its constructor, so the replacement
+    is made on the class."""
+    from t5_resnet_vqa_torch.data import DaquarCollateBase
+
+    saved = DaquarCollateBase.load_images
+    DaquarCollateBase.load_images = lambda self, paths: load_images(paths)
+    try:
+        yield
+    finally:
+        DaquarCollateBase.load_images = saved
+
+
+def train_data(n_train, n_test, size=IMAGE):
     """(answers, train samples, test samples, load_images): DAQUAR-shaped
-    questions with one or two answers each, and seeded uint8 images standing
-    in for the image files (the card's machine has no decoder)."""
+    questions with one or two answers each, over DISTINCT_IMAGES images per
+    split, and seeded uint8 images of ``size``^2 standing in for the image
+    files."""
     from t5_resnet_vqa_torch.data import Annotation, Question, Sample
 
     answers = [f"answer{i:03d}" for i in range(ANSWERS)]
@@ -891,7 +963,7 @@ def train_data(n_train, n_test):
         for i in range(n):
             path = f"{name}_{i % DISTINCT_IMAGES}.png"
             if path not in images:
-                images[path] = rng.integers(0, 256, (IMAGE, IMAGE, 3),
+                images[path] = rng.integers(0, 256, (size, size, 3),
                                             dtype=np.uint8)
             obj = objects[int(rng.integers(len(objects)))]
             picks = [answers[int(rng.integers(ANSWERS))]
@@ -909,14 +981,15 @@ def train_data(n_train, n_test):
             split("test", n_test * BATCH), load_images)
 
 
-def train_config(output_dir):
-    """The flagship's training configuration (the reference config's
-    optimizer, schedule and callbacks) at B=64, bf16 compute with fp32
-    master weights; threshold -1 makes every epoch save the best model."""
+def train_config(output_dir, vision="resnet50"):
+    """The reference config's optimizer, schedule, callbacks and
+    frozen-feature cache for the ``vision`` model at B=64, bf16 compute
+    with fp32 master weights; threshold -1 makes every epoch save the best
+    model."""
     from t5_resnet_vqa_torch.core import Config
 
     cfg = Config.from_json(os.path.join(REPO, "vit_daquar_config.json"))
-    cfg.model.vision_model_name = "resnet50"
+    cfg.model.vision_model_name = vision
     cfg.model.compute_dtype = "bfloat16"
     dk, tk = cfg.dataset, cfg.trainer
     dk.train_batch_size = dk.test_batch_size = BATCH
@@ -928,125 +1001,341 @@ def train_config(output_dir):
     tk.device = DEVICE
     tk.load_from_checkpoint = False
     cfg.callbacks.threshold = -1.0
+    if not tk.cache_frozen_features:
+        raise AssertionError("the reference config no longer caches the "
+                             "frozen tower's features")
     return cfg.validate()
 
 
-def phase_train(torch, card):
-    """The training path at full width: one epoch through ``VQATrainer``
-    (production dropout, bf16 compute), kernels on against off at dropout 0
-    (bf16 and fp32), and train-step timings with the kernels on and off in
-    turns. Returns the launch counts of the epoch and per step."""
-    import shutil
-    import tempfile
-
-    from t5_resnet_vqa_torch.data import DataLoader, to_device
+def train_epoch(torch, cfg, build, data, expect, log_lines):
+    """One epoch through ``VQATrainer``: the counts are set to 0 just before
+    the trainer is built (its constructor builds the frozen-feature cache)
+    and read just after ``train()``. ``expect`` gives the (attention,
+    bottleneck) launches of the cache's build, of each train step and of
+    each eval forward. Checks finite losses, the launches, ``log_lines`` in
+    the log, the validation predictions and a strict reload of
+    ``best-model.pt`` (eval log-probs within 1e-4). Returns the numbers for
+    the phase's line and the reloaded model (bf16 compute, in train mode),
+    which a later timing may reuse."""
+    from t5_resnet_vqa_torch.data import to_device
     from t5_resnet_vqa_torch.ops import attention as A
     from t5_resnet_vqa_torch.ops import bottleneck as K
     from t5_resnet_vqa_torch.train import VQATrainer
-    from t5_resnet_vqa_torch.train.trainer import (
-        _device_batch,
-        build_collates,
-        prepare_model,
-    )
+    from t5_resnet_vqa_torch.train.trainer import _device_batch, prepare_model
 
-    answers, train_ds, test_ds, load_images = train_data(TRAIN_BATCHES,
-                                                         TEST_BATCHES)
+    answers, train_ds, test_ds, load_images = data
+    out_dir = cfg.trainer.output_dir
+    calls = {"train": [], "eval": []}
+
+    def counted(kind, fn):
+        def run(batch):
+            a0, k0 = A.launches, K.launches
+            out = fn(batch)
+            calls[kind].append((A.launches - a0, K.launches - k0, out[0]))
+            return out
+        return run
+
+    A.launches = 0
+    K.launches = 0
+    t0 = time.perf_counter()
+    with seeded_images(load_images):
+        trainer = VQATrainer(build(), cfg, answers, train_ds, test_ds)
+        cache_build = (A.launches, K.launches)
+        trainer.train_step = counted("train", trainer.train_step)
+        trainer.eval_step = counted("eval", trainer.eval_step)
+        trainer.train()
+    epoch_s = time.perf_counter() - t0
+    launches = {"attention": A.launches, "bottleneck": K.launches}
+    counts = {"cache_build": [cache_build],
+              "train": [c[:2] for c in calls["train"]],
+              "eval": [c[:2] for c in calls["eval"]]}
+    want = {"cache_build": [expect["cache_build"]],
+            "train": [expect["train"]] * TRAIN_BATCHES,
+            "eval": [expect["eval"]] * TEST_BATCHES}
+    if counts != want:
+        raise AssertionError(f"launches (attention, bottleneck): {counts}, "
+                             f"expected {want}")
+    losses = torch.stack([c[2] for c in calls["train"]]).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"train losses {losses.tolist()}")
+    with open(trainer.logger.log_path) as f:
+        log = f.read()
+    for line in log_lines + ("Average WUPS Score", "Average Validation Loss",
+                             "Saving new best-model"):
+        if line not in log:
+            raise AssertionError(f"the training log lacks {line!r}")
+    cache_line = next(ln for ln in log.splitlines()
+                      if "Frozen-feature cache:" in ln)
+    with open(os.path.join(out_dir, "validation_predictions",
+                           "0_validation_predictions.json")) as f:
+        predictions = json.load(f)
+    if len(predictions) != TEST_BATCHES * BATCH:
+        raise AssertionError(f"{len(predictions)} validation predictions")
+
+    # best-model.pt into a fresh model: the same eval log-probs
+    state = torch.load(os.path.join(out_dir, "model_checkpoints",
+                                    "best-model.pt"),
+                       map_location="cpu", weights_only=True)
+    fresh = prepare_model(build(), torch.device(DEVICE), torch.bfloat16)
+    fresh.load_state_dict(state, strict=True)
+    test_batch = _device_batch(to_device(
+        next(iter(trainer.test_dataloader)), torch.device(DEVICE)))
+    with torch.inference_mode(), torch.autocast(DEVICE,
+                                                dtype=torch.bfloat16):
+        got = fresh.eval()(**test_batch)[0]
+        want_lp = trainer.model.eval()(**test_batch)[0]
+    reload_diff = float((got - want_lp).abs().max())
+    if not reload_diff <= 1e-4:
+        raise AssertionError(f"best-model.pt reloaded gives log-probs "
+                             f"{reload_diff} away")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return fresh.train(), {"launches": launches,
+            "launches_cache_build": dict(zip(("attention", "bottleneck"),
+                                             expect["cache_build"])),
+            "launches_per_train_step": dict(zip(("attention", "bottleneck"),
+                                                expect["train"])),
+            "launches_per_eval_forward": dict(zip(("attention",
+                                                   "bottleneck"),
+                                                  expect["eval"])),
+            "cache_log_line": cache_line, "losses": losses.tolist(),
+            "epoch_s": epoch_s, "best_model_reload_logprob_diff": reload_diff,
+            "validation_predictions": len(predictions)}
+
+
+def cache_chunks(data) -> int:
+    """The chunks in which the trainer builds its cache: the unique images
+    of both splits in chunks of min(64, train rows) (192 images in 3 chunks
+    of 64 at the smoke's sizes)."""
+    _, train_ds, test_ds, _ = data
+    images = {s.image_path for s in train_ds + test_ds}
+    return -(-len(images) // min(64, len(train_ds)))
+
+
+def raw_batches(torch, cfg, data, family, n):
+    """The first ``n`` train batches with their images, on the device, with
+    their ``_indices`` (the cached variant gathers by them)."""
+    from t5_resnet_vqa_torch.data import DataLoader, to_device
+    from t5_resnet_vqa_torch.train.trainer import build_collates
+
+    answers, train_ds, _, load_images = data
+    collate, _ = build_collates(cfg.dataset, answers, seed=0, family=family)
+    collate.load_images = load_images
+    return [to_device(b, torch.device(DEVICE))
+            for b, _ in zip(DataLoader(train_ds, collate, BATCH), range(n))]
+
+
+def cached_batches(torch, model, data, raws):
+    """A feature cache over both splits built with ``model``, and ``raws``
+    with the gathered ``vision_features`` in place of their images. Returns
+    (batches, the build's (attention, bottleneck) launches)."""
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train import build_feature_cache
+    from t5_resnet_vqa_torch.train.trainer import _device_batch
+
+    _, train_ds, test_ds, load_images = data
+    a0, k0 = A.launches, K.launches
+    built, why = build_feature_cache(model, [train_ds, test_ds], load_images,
+                                     BATCH, compute_dtype=torch.bfloat16)
+    if built is None:
+        raise AssertionError(f"the feature cache was not built: {why}")
+    launches = (A.launches - a0, K.launches - k0)
+    cache, (rows, _), _ = built
+    out = []
+    for raw in raws:
+        batch = {k: v for k, v in _device_batch(raw).items()
+                 if k not in ("image_tensors", "pixel_values")}
+        batch["vision_features"] = cache.gather(rows[raw["_indices"]])
+        out.append(batch)
+    return out, launches
+
+
+def parity_config(cfg):
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    for key, lr in PARITY_LRS.items():
+        setattr(cfg.optimizer, key, lr)
+    return cfg
+
+
+def cache_parity(torch, cfg, build, data, raws):
+    """The cache on against off over CACHE_STEPS steps at dropout 0, from
+    the same weights (one model, its state restored between the runs) on
+    the same batches, kernels on, bf16: losses within CACHE_TOL relative.
+    Returns the line's numbers and the cached batches."""
+    from t5_resnet_vqa_torch.train.trainer import _device_batch, prepare_model
+
+    cfg = parity_config(cfg)
+    model = prepare_model(build(), torch.device(DEVICE),
+                          torch.bfloat16).train()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    cached, build_launches = cached_batches(torch, model, data, raws)
+    plain = [_device_batch(r) for r in raws]
+    off, off_counts = _steps(torch, cfg, model, torch.bfloat16,
+                             plain[:CACHE_STEPS], CACHE_STEPS)
+    model.load_state_dict(start)
+    on, on_counts = _steps(torch, cfg, model, torch.bfloat16,
+                           cached[:CACHE_STEPS], CACHE_STEPS)
+    diff = max(abs(a - b) / abs(b) for a, b in zip(on, off))
+    if not (np.isfinite(on + off).all() and diff <= CACHE_TOL):
+        raise AssertionError(f"losses with the cache on {on} and off {off} "
+                             f"differ by {diff} > {CACHE_TOL}")
+    del model, start
+    torch.cuda.empty_cache()
+    return ({"steps": CACHE_STEPS, "losses_cache_on": on,
+             "losses_cache_off": off, "loss_diff": diff, "tol": CACHE_TOL,
+             "launches_per_step_cache_on": on_counts,
+             "launches_per_step_cache_off": off_counts,
+             "launches_cache_build": build_launches}, cached)
+
+
+def phase_train(torch, card):
+    """The CNN family's training path: one epoch through ``VQATrainer``
+    (production dropout, bf16 compute, the cache on), the cache on against
+    off, kernels on against off at dropout 0 with the cache off (bf16 and
+    fp32), and train-step timings with the cache off and the kernels on and
+    off in turns. Returns the launch counts of the epoch and per step."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.train.trainer import _device_batch, prepare_model
+
+    data = train_data(TRAIN_BATCHES, TEST_BATCHES)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         cfg = train_config(out_dir)
-
-        # (a) one epoch through the entry point, counts set to 0 just before
-        trainer = VQATrainer(_build_model(torch, torch.float32, True), cfg,
-                             answers, train_ds, test_ds)
-        for loader in (trainer.train_dataloader, trainer.test_dataloader):
-            loader.collate_fn.load_images = load_images
-        calls = {"train": [], "eval": []}
-
-        def counted(kind, fn):
-            def run(batch):
-                a0, k0 = A.launches, K.launches
-                out = fn(batch)
-                calls[kind].append((A.launches - a0, K.launches - k0,
-                                    out[0]))
-                return out
-            return run
-
-        eval_step = trainer.eval_step
-        trainer.train_step = counted("train", trainer.train_step)
-        trainer.eval_step = counted("eval", eval_step)
-        A.launches = 0
-        K.launches = 0
-        t0 = time.perf_counter()
-        trainer.train()
-        epoch_s = time.perf_counter() - t0
-        launches = {"attention": A.launches, "bottleneck": K.launches}
-        per_step = {kind: [c[:2] for c in calls[kind]] for kind in calls}
-        if per_step != {"train": [(0, 7)] * TRAIN_BATCHES,
-                        "eval": [(6, 7)] * TEST_BATCHES}:
-            raise AssertionError(f"launches (attention, bottleneck) per "
-                                 f"step {per_step}: expected (0, 7) per "
-                                 f"train step, (6, 7) per eval forward")
-        losses = torch.stack([c[2] for c in calls["train"]]).float().cpu()
-        if not bool(torch.isfinite(losses).all()):
-            raise AssertionError(f"train losses {losses.tolist()}")
-        with open(trainer.logger.log_path) as f:
-            log = f.read()
-        for line in ("Average WUPS Score", "Average Validation Loss",
-                     "Saving new best-model"):
-            if line not in log:
-                raise AssertionError(f"the training log lacks {line!r}")
-        with open(os.path.join(out_dir, "validation_predictions",
-                               "0_validation_predictions.json")) as f:
-            predictions = json.load(f)
-        if len(predictions) != TEST_BATCHES * BATCH:
-            raise AssertionError(f"{len(predictions)} validation predictions")
-
-        # best-model.pt into a fresh model: the same eval log-probs
-        state = torch.load(os.path.join(out_dir, "model_checkpoints",
-                                        "best-model.pt"),
-                           map_location="cpu", weights_only=True)
-        fresh = prepare_model(_build_model(torch, torch.float32, True),
-                              torch.device(DEVICE), torch.bfloat16)
-        fresh.load_state_dict(state, strict=True)
-        test_batch = _device_batch(to_device(
-            next(iter(trainer.test_dataloader)), torch.device(DEVICE)))
-        with torch.inference_mode(), torch.autocast(DEVICE,
-                                                    dtype=torch.bfloat16):
-            got = fresh.eval()(**test_batch)[0]
-            want = trainer.model.eval()(**test_batch)[0]
-        reload_diff = float((got - want).abs().max())
-        if not reload_diff <= 1e-4:
-            raise AssertionError(f"best-model.pt reloaded gives log-probs "
-                                 f"{reload_diff} away")
+        reloaded, epoch = train_epoch(
+            torch, cfg, lambda: _build_model(torch, torch.float32, True),
+            data, {"cache_build": (0, 7 * cache_chunks(data)),
+                   "train": (0, 0), "eval": (6, 0)},
+            (f"Frozen-feature cache: {2 * DISTINCT_IMAGES} images",))
+        del reloaded
         emit({"phase": "train_epoch", "card": card,
               "model": "resnet50 + t5-base + 3xSGA", "answers": ANSWERS,
               "dtype": "bfloat16 compute, fp32 master weights",
               "dropout": "production (T5 0.1, SGA 0.1)", "batch": BATCH,
               "train_steps": TRAIN_BATCHES, "eval_forwards": TEST_BATCHES,
-              "launches": launches,
-              "launches_per_train_step": {"attention": 0, "bottleneck": 7},
-              "launches_per_eval_forward": {"attention": 6,
-                                            "bottleneck": 7},
-              "losses": losses.tolist(), "epoch_s": epoch_s,
-              "best_model_reload_logprob_diff": reload_diff,
-              "validation_predictions": len(predictions)})
-        del trainer, fresh, state, got, want
-        torch.cuda.empty_cache()
+              **epoch})
 
-        # the same device batches for the comparisons and the timings
-        collate, _ = build_collates(cfg.dataset, answers, seed=0)
-        collate.load_images = load_images
-        batches = [_device_batch(to_device(b, torch.device(DEVICE)))
-                   for b, _ in zip(DataLoader(train_ds, collate, BATCH),
-                                   range(BF16_STEPS))]
-        parity = train_parity(torch, cfg, batches, card)
-        train_timing(torch, cfg, batches[0], card, dropout=True)
+        raws = raw_batches(torch, cfg, data, "cnn", BF16_STEPS)
+        build = lambda: _build_model(torch, torch.float32, True,
+                                     dropout=False)
+        cache, _ = cache_parity(torch, cfg, build, data, raws)
+        emit({"phase": "train_cache", "card": card,
+              "model": "resnet50 + t5-base + 3xSGA", **cache})
+        batches = [_device_batch(r) for r in raws]
+        timing = {}
+
+        def time_pair(models, dropout, rounds):
+            """The kernels on and off in turns, the cache off: the
+            bottleneck kernel runs in the timed step."""
+            timing[dropout] = train_timing(
+                torch, cfg, {"kernels_on": (models[True], batches[0]),
+                             "kernels_off": (models[False], batches[0])},
+                card, "train_timing", dropout, rounds)
+
+        # at dropout 0 the parity's bf16 pair is timed, attention on the
+        # kernel
+        parity = train_parity(
+            torch, cfg, batches,
+            lambda flag: _build_model(torch, torch.float32, flag,
+                                      dropout=False), (6, 7),
+            after_bf16=lambda models: time_pair(models, False,
+                                                TRAIN_ROUNDS // 2))
         emit({"phase": "train_parity", "card": card, **parity})
+        models = {flag: prepare_model(
+            _build_model(torch, torch.float32, flag), torch.device(DEVICE),
+            torch.bfloat16).train() for flag in (True, False)}
+        time_pair(models, True, TRAIN_ROUNDS)
+        del models
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    return {"epoch": launches, "per_step": {
-        "attention": {"production_dropout": 0, "dropout_0": 6},
-        "bottleneck": {"production_dropout": 7, "dropout_0": 7}}}
+    per_step = {}
+    for i, name in enumerate(("attention", "bottleneck")):
+        per_step[name] = {
+            "cache_build": epoch["launches_cache_build"][name],
+            "cached_production_dropout":
+                epoch["launches_per_train_step"][name],
+            "eval_forward_cached": epoch["launches_per_eval_forward"][name],
+            "cache_off_production_dropout":
+                timing[True]["kernels_on"]["launches_per_step"][name],
+            "cache_off_dropout_0":
+                timing[False]["kernels_on"]["launches_per_step"][name]}
+    return {"epoch": epoch["launches"], "per_step": per_step}
+
+
+def phase_train_vit(torch, card):
+    """The ViT family's training path at full width (see the module
+    docstring). Returns the launch counts of the epoch and per step."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.train.trainer import _device_batch, prepare_model
+
+    t_phase = time.perf_counter()
+    data = train_data(TRAIN_BATCHES, TEST_BATCHES, VIT_IMAGE)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_vit_")
+    model_name = "vit-base + t5-base enc-dec"
+    try:
+        cfg = train_config(out_dir, VIT_NAME)
+        reloaded, epoch = train_epoch(
+            torch, cfg, lambda: _build_vit_model(torch, torch.float32, True),
+            data, {"cache_build": (12 * cache_chunks(data), 0),
+                   "train": (0, 0), "eval": (0, 0)},
+            (f"Frozen-feature cache: {2 * DISTINCT_IMAGES} images",
+             "Adaptive token lengths"))
+        emit({"phase": "train_vit_epoch", "card": card, "model": model_name,
+              "answers": ANSWERS,
+              "dtype": "bfloat16 compute, fp32 master weights",
+              "dropout": "production (T5 0.1, fusing layer 0.5)",
+              "batch": BATCH, "train_steps": TRAIN_BATCHES,
+              "eval_forwards": TEST_BATCHES, **epoch})
+
+        raws = raw_batches(torch, cfg, data, "vit", BF16_STEPS)
+        cache, cached = cache_parity(
+            torch, cfg, lambda: _build_vit_model(torch, torch.float32, True,
+                                                 dropout=False), data, raws)
+        emit({"phase": "train_vit_cache", "card": card, "model": model_name,
+              **cache})
+        batches = [_device_batch(r) for r in raws]
+        parity = train_parity(
+            torch, cfg, batches,
+            lambda flag: _build_vit_model(torch, torch.float32, flag,
+                                          dropout=False), (12, 0))
+        fine_tuned = fine_tuned_steps(torch, cfg, batches)
+        emit({"phase": "train_vit_parity", "card": card, "model": model_name,
+              **parity, "fine_tuned": fine_tuned})
+
+        # the reloaded best model (production dropout) takes the cached
+        # batch
+        variants = {
+            "cached": (reloaded, cached[0]),
+            "cache_off": (prepare_model(
+                _build_vit_model(torch, torch.float32, True),
+                torch.device(DEVICE), torch.bfloat16).train(), batches[0]),
+            "fine_tuned": (prepare_model(
+                _build_vit_model(torch, torch.float32, True,
+                                 fine_tune_vision=True),
+                torch.device(DEVICE), torch.bfloat16).train(), batches[0])}
+        timing = train_timing(torch, cfg, variants, card, "train_vit_timing",
+                              True, TRAIN_ROUNDS)
+        del variants, reloaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    per_step = {}
+    for name in ("attention", "bottleneck"):
+        per_step[name] = {
+            "cache_build": epoch["launches_cache_build"][name],
+            "eval_forward_cached": epoch["launches_per_eval_forward"][name],
+            **{label: timing[label]["launches_per_step"][name]
+               for label in ("cached", "cache_off", "fine_tuned")}}
+    emit({"phase": "train_vit", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return {"epoch": epoch["launches"], "per_step": per_step}
 
 
 def _steps(torch, cfg, model, dtype, batches, total):
@@ -1069,35 +1358,30 @@ def _steps(torch, cfg, model, dtype, batches, total):
     return losses, counts
 
 
-def _parity_pair(torch, dtype):
+def train_parity(torch, cfg, batches, build, on_counts_expected,
+                 after_bf16=None):
+    """Kernels on against off at dropout 0, same weights and batches (images,
+    the cache off): bf16 over BF16_STEPS batches, fp32 (no TF32) over one
+    batch repeated FP32_STEPS times, whose loss must fall. ``build(flag)``
+    builds the fp32 model with the kernels on or off; ``on_counts_expected``
+    is the (attention, bottleneck) launches of a step with them on;
+    ``after_bf16`` is called with the bf16 pair after its comparison."""
     from t5_resnet_vqa_torch.train.trainer import prepare_model
 
-    return {flag: prepare_model(
-        _build_model(torch, torch.float32, flag, dropout=False),
-        torch.device(DEVICE), dtype).train() for flag in (True, False)}
-
-
-def train_parity(torch, cfg, batches, card):
-    """Kernels on against off at dropout 0, same weights and batches: bf16
-    over BF16_STEPS batches (then timed, in turns), fp32 (no TF32) over one
-    batch repeated FP32_STEPS times, whose loss must fall."""
-    import copy
-
-    cfg = copy.deepcopy(cfg)
-    for key, lr in PARITY_LRS.items():
-        setattr(cfg.optimizer, key, lr)
+    cfg = parity_config(cfg)
     out = {"bf16_steps": BF16_STEPS, "fp32_steps": FP32_STEPS,
            "lrs": PARITY_LRS}
     for dtype_name, n in (("bfloat16", BF16_STEPS), ("float32", FP32_STEPS)):
         dtype = getattr(torch, dtype_name)
-        models = _parity_pair(torch, dtype)
+        models = {flag: prepare_model(build(flag), torch.device(DEVICE),
+                                      dtype).train() for flag in (True, False)}
         run = batches if dtype_name == "bfloat16" else [batches[0]] * n
         before = {k: v.detach().clone() for k, v in
                   models[True].named_parameters()}
         res = {flag: _steps(torch, cfg, m, dtype, run, n)
                for flag, m in models.items()}
         (on, on_counts), (off, off_counts) = res[True], res[False]
-        if on_counts != [(6, 7)] * n or off_counts != [(0, 0)] * n:
+        if on_counts != [on_counts_expected] * n or off_counts != [(0, 0)] * n:
             raise AssertionError(f"{dtype_name} launches per step: kernels "
                                  f"on {on_counts}, off {off_counts}")
         if not all(np.isfinite(on + off)):
@@ -1109,7 +1393,8 @@ def train_parity(torch, cfg, batches, card):
             raise AssertionError(f"{dtype_name} losses on {on} off {off}: "
                                  f"differ by {max(diffs)} > {tol}")
         line = {"losses_on": on, "losses_off": off,
-                "loss_diff": max(diffs), "loss_tol": tol}
+                "loss_diff": max(diffs), "loss_tol": tol,
+                "launches_per_step_on": on_counts[0]}
         if dtype_name == "float32":
             if not on[-1] < on[0]:
                 raise AssertionError(f"the loss on a repeated batch did not "
@@ -1131,56 +1416,99 @@ def train_parity(torch, cfg, batches, card):
             line.update({"update_diff_over_update": ratio,
                          "update_tol": UPDATE_TOL,
                          "param_max_abs_diff": max_diff})
-        else:           # the training path with attention on the kernel
-            train_timing(torch, cfg, batches[0], card, dropout=False,
-                         models=models, rounds=TRAIN_ROUNDS // 2)
+        elif after_bf16 is not None:
+            after_bf16(models)
         out[dtype_name] = line
         del models, res, before
         torch.cuda.empty_cache()
     return out
 
 
-def train_timing(torch, cfg, batch, card, dropout=True, models=None,
+def fine_tuned_steps(torch, cfg, batches):
+    """FINE_TUNED_STEPS steps of a fine-tuned ViT tower (bf16 compute, fp32
+    master weights, dropout 0) with the kernels on and off, same weights
+    and batches: 12 kernel forwards per step with them on, whose backward
+    is the plain version's VJP; every tower parameter moves; bf16 losses
+    within TRAIN_LOSS_TOL."""
+    from t5_resnet_vqa_torch.train.trainer import prepare_model
+
+    cfg = parity_config(cfg)
+    n = FINE_TUNED_STEPS
+    models = {flag: prepare_model(
+        _build_vit_model(torch, torch.float32, flag, dropout=False,
+                         fine_tune_vision=True),
+        torch.device(DEVICE), torch.bfloat16).train()
+        for flag in (True, False)}
+    tower = {k: v.detach().clone() for k, v in
+             models[True].vision_model.named_parameters()}
+    res = {flag: _steps(torch, cfg, m, torch.bfloat16, batches[:n], n)
+           for flag, m in models.items()}
+    (on, on_counts), (off, off_counts) = res[True], res[False]
+    if on_counts != [(12, 0)] * n or off_counts != [(0, 0)] * n:
+        raise AssertionError(f"fine-tuned launches per step: kernels on "
+                             f"{on_counts}, off {off_counts}")
+    diff = max(abs(a - b) for a, b in zip(on, off))
+    if not (np.isfinite(on + off).all()
+            and diff <= TRAIN_LOSS_TOL["bfloat16"]):
+        raise AssertionError(f"fine-tuned losses on {on} off {off}")
+    if models[True].vision_model.embeddings.cls_token.dtype != torch.float32:
+        raise AssertionError("the fine-tuned tower lost its fp32 master "
+                             "weights")
+    still = [k for k, p in models[True].vision_model.named_parameters()
+             if torch.equal(p.detach(), tower[k])]
+    if still:
+        raise AssertionError(f"fine-tuned tower parameters that did not "
+                             f"train: {still[:5]} (of {len(still)})")
+    del models, tower
+    torch.cuda.empty_cache()
+    return {"steps": n, "losses_on": on, "losses_off": off,
+            "loss_diff": diff, "launches_per_step_on": on_counts[0],
+            "lrs": {**PARITY_LRS, "vision_lr": cfg.optimizer.vision_lr}}
+
+
+def train_timing(torch, cfg, variants, card, phase, dropout,
                  rounds=TRAIN_ROUNDS):
-    """Median train-step ms with the kernels on and off in turns (CUDA
-    events; each step ends in a synchronisation that reads the loss), and
-    each one's device busy ms and kernel launches per step (the vision tower, the text tower, the forward, the whole step;
-    backward + optimizer = step - forward) and the device's idle share over
-    10 profiled steps. bf16 compute, ``dropout`` the production rates."""
+    """Median train-step ms of each variant (``{label: (model, batch)}``) in
+    turns (CUDA events; each step ends in a synchronisation that reads the
+    loss), its kernels' launches per step, and each one's device busy ms
+    and kernel launches per step (the vision tower where the batch has
+    images, the text encoder, the forward, the whole step; backward +
+    optimizer = step - forward) and the device's idle share over
+    TRAIN_WINDOW profiled steps. bf16 compute; ``dropout`` says whether the
+    rates are the production ones."""
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
     from t5_resnet_vqa_torch.train import build_optimizer, make_train_step
 
-    if models is None:
-        from t5_resnet_vqa_torch.train.trainer import prepare_model
-        models = {flag: prepare_model(
-            _build_model(torch, torch.float32, flag, dropout=dropout),
-            torch.device(DEVICE), torch.bfloat16).train()
-            for flag in (True, False)}
     steps = {}
-    for flag, model in models.items():
+    for label, (model, batch) in variants.items():
         optimizer, scheduler, _, trainable = build_optimizer(
             model, cfg.optimizer, cfg.lr_scheduler, 10000,
             frozen_modules=model.frozen_modules())
         step = make_train_step(model, optimizer, scheduler, trainable,
                                cfg.trainer.gradient_clipping, torch.bfloat16)
-        steps[flag] = lambda step=step: float(step(batch)[0])
+        steps[label] = lambda step=step, batch=batch: float(step(batch)[0])
         for _ in range(3):
-            steps[flag]()
-    times = {True: [], False: []}
+            steps[label]()
+    labels = list(variants)
+    times = {label: [] for label in labels}
     for r in range(rounds):
-        for flag in ((True, False) if r % 2 == 0 else (False, True)):
-            times[flag].append(step_ms(torch, steps[flag]))
+        for label in (labels if r % 2 == 0 else labels[::-1]):
+            times[label].append(step_ms(torch, steps[label]))
     result = {}
-    for flag, model in models.items():
-        label = "kernels_on" if flag else "kernels_off"
-        median = float(np.median(times[flag]))
-        line = {"phase": "train_timing", "config": label, "card": card,
+    for label, (model, batch) in variants.items():
+        a0, k0 = A.launches, K.launches
+        steps[label]()
+        counts = {"attention": A.launches - a0, "bottleneck": K.launches - k0}
+        median = float(np.median(times[label]))
+        line = {"phase": phase, "config": label, "card": card,
                 "dropout": "production" if dropout else 0.0,
                 "dtype": "bfloat16", "batch": BATCH,
                 "train_step_ms": median,
                 "train_samples_per_s": BATCH / (median / 1e3),
-                "fastest_step_ms": float(min(times[flag])),
-                "steps_ms": times[flag]}
-        line.update(train_breakdown(torch, model, batch, steps[flag]))
+                "fastest_step_ms": float(min(times[label])),
+                "launches_per_step": counts, "steps_ms": times[label]}
+        line.update(train_breakdown(torch, model, batch, steps[label]))
         emit(line)
         result[label] = {k: v for k, v in line.items() if k != "steps_ms"}
     return result
@@ -1198,38 +1526,49 @@ def step_ms(torch, fn) -> float:
 
 
 def train_breakdown(torch, model, batch, step):
-    """Device busy ms and launches of one train step's parts, and the idle
-    share over 10 profiled steps (the profiler's host work included)."""
+    """Device busy ms and launches of a train step's parts (one call each;
+    the step's own as the mean over TRAIN_WINDOW profiled steps), and the
+    idle share over those steps (the profiler's host work included)."""
     autocast = lambda: torch.autocast(DEVICE, dtype=torch.bfloat16)
-
-    def vision():
-        with torch.no_grad(), autocast():
-            model.compute_vision_features(batch["image_tensors"])
+    images = batch.get("image_tensors", batch.get("pixel_values"))
+    # the ViT family's text encoder sits in its T5ForConditionalGeneration
+    encoder = (model.lang_model.encoder if hasattr(model, "decode_hidden")
+               else model.lang_model)
+    parts = {}
+    if images is not None:
+        def vision():
+            with torch.no_grad(), autocast():
+                model.compute_vision_features(images)
+        parts["vision"] = vision
 
     def text():
         with autocast():
-            model.lang_model(batch["question_input_ids"],
-                             batch["question_attention_masks"])
+            encoder(batch["question_input_ids"],
+                    batch["question_attention_masks"])
 
     def forward():
         with autocast():
             model(**batch)
 
-    parts = {"vision": vision, "text": text, "forward": forward,
-             "step": step}
+    parts.update({"text": text, "forward": forward})
     device = {name: profile_device(torch, fn, iters=1)
               for name, fn in parts.items()}
-    window = profile_device(torch, step, iters=10)
+    # the step's numbers are per step of the window (the profiler's
+    # bookkeeping of a window costs seconds; one window serves both)
+    window = profile_device(torch, step, iters=TRAIN_WINDOW)
+    device["step"] = window
     busy = {k: v["busy_ms"] for k, v in device.items()}
     busy["backward_optimizer"] = busy["step"] - busy["forward"]
     count = {k: v["launches"] for k, v in device.items()}
     count["backward_optimizer"] = count["step"] - count["forward"]
     return {"device_busy_ms": busy, "kernel_launches": count,
             "device_idle_share": 1.0 - window["busy_ms"] / window["elapsed_ms"],
-            "idle_window": {"steps": 10, "busy_ms": window["busy_ms"],
+            "idle_window": {"steps": TRAIN_WINDOW,
+                            "busy_ms": window["busy_ms"],
                             "elapsed_ms": window["elapsed_ms"]},
-            "top_kernels": [{"us": us, "calls": n, "name": name}
-                            for us, n, name in device["step"]["kernels"][:12]]}
+            "top_kernels": [{"us": us / TRAIN_WINDOW,
+                             "calls": n / TRAIN_WINDOW, "name": name}
+                            for us, n, name in window["kernels"][:12]]}
 
 
 def main() -> int:
@@ -1254,6 +1593,7 @@ def main() -> int:
     launches = phase_serve(torch, card)
     vit_launches = phase_serve_vit(torch, card)
     train = phase_train(torch, card)
+    train_vit = phase_train_vit(torch, card)
 
     print(card, flush=True)
 
@@ -1272,7 +1612,10 @@ def main() -> int:
                         "bound_by": numbers["bound_by"],
                         "library_ms": numbers["library_ms"],
                         "train_epoch_launches": train["epoch"][name],
-                        "train_launches_per_step": train["per_step"][name]})
+                        "train_launches_per_step": train["per_step"][name],
+                        "vit_train_epoch_launches": train_vit["epoch"][name],
+                        "vit_train_launches_per_step":
+                            train_vit["per_step"][name]})
     vit = att["vit"]
     kernels[0].update({"bwd_ms": att["bwd_ms"],
                        "plain_bwd_ms": att["plain_bwd_ms"],
@@ -1284,7 +1627,10 @@ def main() -> int:
                        "vit_bound_ms": vit["bound_ms"],
                        "vit_bound_by": vit["bound_by"],
                        "vit_library_ms": vit["library_ms"],
-                       "vit_max_abs_err": vit["max_abs_err"]})
+                       "vit_max_abs_err": vit["max_abs_err"],
+                       "vit_bwd_ms": vit["bwd_ms"],
+                       "vit_plain_bwd_ms": vit["plain_bwd_ms"],
+                       "vit_bwd_max_abs_err": vit["bwd_max_abs_err"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

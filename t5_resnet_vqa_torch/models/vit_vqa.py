@@ -7,7 +7,8 @@ reference's ``state_dict`` keys (``vision_model`` = HF ``ViTModel``,
 
   frozen ViT-base -> pooled CLS [B, 768]                 (under no_grad)
   T5 encoder over question ids -> token-0 state [B, 768]
-  concat [B, 1536] -> fusing layer: Linear -> ReLU -> Dropout(0.5)
+  concat [B, 1536] -> fusing layer: Linear -> ReLU -> Dropout
+  (``fusing_dropout``, 0.5 as in the reference)
   T5 decoder with the fused vector as a 1-token memory (no memory mask),
   decoder input "[Question] {q} [Answer]"
   hidden state at the LAST non-pad decoder position -> classifier ->
@@ -72,6 +73,7 @@ class VitVQAModel(nn.Module):
                  vit_config: ViTConfig = ViTConfig.vit_base(),
                  fine_tune_vision: bool = False,
                  use_kernels: bool = True,
+                 fusing_dropout: float = 0.5,
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -85,7 +87,7 @@ class VitVQAModel(nn.Module):
         self.lang_model = T5ForConditionalGeneration(t5_config)
         self.fusing_layer = nn.Sequential(
             nn.Linear(vit_config.hidden_size + d, d), nn.ReLU(),
-            nn.Dropout(0.5))
+            nn.Dropout(fusing_dropout))
         self.classification_layer = nn.Linear(d, answer_spaces)
 
         if generator is None:
@@ -96,6 +98,13 @@ class VitVQAModel(nn.Module):
     def frozen_modules(self):
         """Top-level modules with no gradient path."""
         return () if self.fine_tune_vision else ("vision_model",)
+
+    def vision_tower_deterministic(self) -> bool:
+        """The feature cache's exactness condition: the tower applies no
+        stochastic regularization. The port's ViT has no dropout (the in21k
+        checkpoint's rate is 0), so its features in training and in the
+        cache are the same."""
+        return True
 
     def compute_vision_features(self, pixel_values: torch.Tensor
                                 ) -> torch.Tensor:

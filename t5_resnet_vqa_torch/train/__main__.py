@@ -5,11 +5,12 @@ repo-root ``train_faster_rcnn_vqa.py``):
         --set trainer_kwargs.epochs=3
 
 Loads the six-group JSON config with dotted ``--set`` overrides, reads the
-answer space, builds the model named by ``model_kwargs.vision_model_name``
-(a ViT name in the shared reference file means resnet50 here, as in the
-JAX entry point), resumes from ``best-model.pt`` when
-``load_from_checkpoint`` is set, and trains. It runs on the card unless
-``--set trainer_kwargs.device=cpu`` names the CPU.
+answer space, builds the CNN-family model named by
+``model_kwargs.vision_model_name`` (a ViT name in the shared reference file
+means resnet50 here, as in the JAX entry point), resumes from
+``best-model.pt`` when ``load_from_checkpoint`` is set, and trains. It runs
+on the card unless ``--set trainer_kwargs.device=cpu`` names the CPU. The
+ViT family has its own entry point, ``python -m t5_resnet_vqa_torch.train.vit``.
 """
 
 import argparse
@@ -18,8 +19,9 @@ from ..core.config import Config
 from .trainer import VQATrainer
 
 
-def parse_args(argv=None, default_vision: str = "resnet50") -> Config:
-    p = argparse.ArgumentParser(description=__doc__,
+def parse_args(argv=None, default_vision: str = "resnet50",
+               description: str = __doc__) -> Config:
+    p = argparse.ArgumentParser(description=description,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--config", default="vit_daquar_config.json",
                    help="six-group JSON config (reference layout accepted)")

@@ -11,9 +11,13 @@ modules. The same step in PyTorch is what that chain was written to match:
 builds this loop). Differences: ``clip_grad_norm_`` divides by the norm
 plus 1e-6, optax by the norm; the tests' tolerances allow for it.
 
-A parameter's group comes from the first component of its ``state_dict``
-name through ``DEFAULT_GROUP_MAP``, as ``label_params`` labels the JAX
-param tree by its top-level module. Frozen modules are left out of the
+A parameter's group comes from the JAX top-level module its ``state_dict``
+name stands for, through ``DEFAULT_GROUP_MAP``, as ``label_params`` labels
+the JAX param tree by its top-level module. That module is the name's
+first component, except under the prefixes of ``JAX_TOP_LEVEL``: the ViT
+family's ``lang_model`` (HF ``T5ForConditionalGeneration``) holds what the
+JAX model keeps as three top-level modules, ``shared``, ``lang_encoder``
+and ``lang_decoder``. Frozen modules are left out of the
 optimizer entirely, and so are the parameters no forward uses (the unused
 projection twin, the backbone's ``fc``): they never change.
 """
@@ -44,6 +48,14 @@ DEFAULT_GROUP_MAP: Dict[str, str] = {
     "fusing_layer": "fusion",
     "layer_norm": "fusion",
     "classification_layer": "classifier",
+}
+
+# port module path -> the JAX top-level module it stands for, where the two
+# differ (the ViT family's one tied table, encoder and decoder)
+JAX_TOP_LEVEL: Dict[str, str] = {
+    "lang_model.shared": "shared",
+    "lang_model.encoder": "lang_encoder",
+    "lang_model.decoder": "lang_decoder",
 }
 
 GROUPS = ("vision", "lm_encoder", "lm_decoder", "fusion", "classifier",
@@ -98,17 +110,26 @@ def unused_parameters(model: nn.Module) -> Tuple[str, ...]:
     return tuple(names)
 
 
+def jax_top_level(name: str) -> str:
+    """The JAX top-level module that the parameter ``name`` belongs to."""
+    for prefix, top in JAX_TOP_LEVEL.items():
+        if name.startswith(prefix + "."):
+            return top
+    return name.split(".")[0]
+
+
 def label_params(model: nn.Module,
                  group_map: Optional[Dict[str, str]] = None,
                  frozen_modules: Sequence[str] = ()) -> Dict[str, str]:
-    """{parameter name: LR group}: the group of its top-level module;
-    FROZEN_LABEL for frozen modules and unused parameters."""
+    """{parameter name: LR group}: the group of its JAX top-level module;
+    FROZEN_LABEL for frozen modules and unused parameters. A tied table is
+    one parameter and gets one label."""
     gm = group_map or DEFAULT_GROUP_MAP
     frozen = set(frozen_modules)
     unused = set(unused_parameters(model))
     labels = {}
     for name, _ in model.named_parameters():
-        top = name.split(".")[0]
+        top = jax_top_level(name)
         labels[name] = (FROZEN_LABEL if top in frozen or name in unused
                         else gm.get(top, "default"))
     return labels

@@ -1,4 +1,4 @@
-"""The VQA trainer for the CNN family.
+"""The VQA trainer for the CNN and the ViT families.
 
 PyTorch counterpart of ``VQATrainer`` and ``make_train_step`` of the JAX
 package's ``train/trainer.py``, with its log lines and artifacts:
@@ -21,7 +21,18 @@ bf16 compute (``model.compute_dtype="bfloat16"`` or ``mxp_training``)
 keeps fp32 master weights in the trainable modules and runs the forward
 under ``torch.autocast(dtype=torch.bfloat16)``; the frozen tower has no
 master weights and is held in bf16 (``prepare_model``), so the fused
-bottleneck stages get bf16 activations and operands.
+bottleneck stages get bf16 activations and operands. A fine-tuned tower
+keeps fp32 master weights like the rest.
+
+The family decides only the collate (``DaquarCnnCollate`` or
+``DaquarVitCollate``) and, for the ViT family, the adaptive token lengths
+(``dataset_kwargs.adaptive_question_len``): the question and decoder
+lengths shrink to the longest tokenized question of the two datasets, which
+changes no number (trailing pad columns are masked everywhere in that
+family). The steps are family-blind. With ``cache_frozen_features`` (the
+reference config's setting) a frozen tower runs once per unique image
+before the first epoch (``train/feature_cache.py``), and the steps take the
+gathered ``vision_features`` in place of the images.
 
 Knobs of the JAX trainer that change nothing in the numbers are named in
 one startup log line and otherwise ignored; knobs that would change what
@@ -41,12 +52,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import constants
 from ..core.config import Config, DatasetConfig
 from ..core.device import resolve_device
 from ..core.logging import ExperimentTracker, Logger
 from ..data import (
     DaquarCnnCollate,
     DaquarDataset,
+    DaquarVitCollate,
     DataLoader,
     Prefetcher,
     load_answer_spaces,
@@ -54,7 +67,8 @@ from ..data import (
 from ..eval.wups import average_wups, wup_measure, wups_mode
 from ..utils.time_utils import convert_time_to_readable_format
 from .callbacks import EarlyStopping
-from .factory import CNN_FAMILY, build_model, model_family
+from .factory import CNN_FAMILY, VIT_FAMILY, build_model, model_family
+from .feature_cache import CachedFeatureLoader, build_feature_cache
 from .optimizer import FROZEN_LABEL, build_optimizer, label_params
 
 _EVAL_ONLY_KEYS = ("answers", "questions", "image_fns")
@@ -141,12 +155,15 @@ def make_eval_step(model: nn.Module,
 
 
 def build_collates(dk: DatasetConfig, answer_spaces: List[str], seed: int,
-                   tokenizer=None):
-    """(train collate, eval collate) from the dataset config, as the JAX
-    trainer builds them (cv2 image path, seeded answer choice)."""
-    kw = dict(resizing_dimensions=(dk.image_size, dk.image_size),
-              lang_model=dk.language_model_tokenizer, seed=seed,
+                   tokenizer=None, family: str = CNN_FAMILY):
+    """(train collate, eval collate) of ``family`` from the dataset config,
+    as the JAX trainer builds them (cv2 image path, seeded answer choice)."""
+    kw = dict(lang_model=dk.language_model_tokenizer, seed=seed,
               tokenizer=tokenizer, emit_uint8=dk.uint8_wire_images)
+    if family == VIT_FAMILY:
+        return (DaquarVitCollate(answer_spaces, **kw),
+                DaquarVitCollate(answer_spaces, eval_mode=True, **kw))
+    kw["resizing_dimensions"] = (dk.image_size, dk.image_size)
     return (DaquarCnnCollate(answer_spaces, dk.interpolation_strategy, **kw),
             DaquarCnnCollate(answer_spaces, dk.interpolation_strategy,
                              eval_mode=True, **kw))
@@ -176,7 +193,8 @@ def _refuse_unported(config: Config) -> None:
 
 
 class VQATrainer:
-    """Trains a CNN-family model on DAQUAR (see the module docstring)."""
+    """Trains a CNN- or ViT-family model on DAQUAR (see the module
+    docstring)."""
 
     def __init__(self, model: nn.Module, config: Config,
                  answer_spaces: List[str], train_dataset=None,
@@ -184,10 +202,11 @@ class VQATrainer:
         _refuse_unported(config)
         self.config = config
         self.family = model_family(config.model)
-        if self.family != CNN_FAMILY:
+        if self.family not in (CNN_FAMILY, VIT_FAMILY):
             raise NotImplementedError(
-                f"the port trains the {CNN_FAMILY!r} family only, not "
-                f"{self.family!r}")
+                f"the port trains the {CNN_FAMILY!r} and {VIT_FAMILY!r} "
+                f"families, not {self.family!r} (ROADMAP.md, modules "
+                f"item 11)")
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
 
         tk = config.trainer
@@ -236,6 +255,12 @@ class VQATrainer:
         if tk.load_from_checkpoint:
             self._try_resume()
 
+        # after the resume (the features come from the weights that train),
+        # before the steps are built
+        self._feature_cache = None
+        if tk.cache_frozen_features:
+            self._setup_feature_cache()
+
         self._log_startup_summary()
         self.train_step = make_train_step(
             model, self.optimizer, self.scheduler, trainable,
@@ -254,7 +279,14 @@ class VQATrainer:
                                          dk.images_dir, "val")
         seed = self.config.trainer.seed
         train_collate, test_collate = build_collates(
-            dk, self.answer_spaces, seed, tokenizer)
+            dk, self.answer_spaces, seed, tokenizer, self.family)
+        if dk.adaptive_question_len and self.family == VIT_FAMILY:
+            # the ViT family only: its text path reads token 0 of the
+            # encoder (pads are masked keys) and the last non-pad decoder
+            # position (causal), so trailing pad columns cannot reach the
+            # output; the CNN family's SGA reads pad rows unmasked
+            self._fit_token_lengths(train_dataset, test_dataset,
+                                    [train_collate, test_collate])
         self.train_dataloader = DataLoader(
             train_dataset, train_collate, dk.train_batch_size, shuffle=True,
             seed=seed, drop_remainder=dk.drop_remainder)
@@ -266,6 +298,81 @@ class VQATrainer:
         self.ten_percent_train_batch = max(
             1, int(self.total_train_batch
                    * self.config.trainer.log_every_fraction))
+
+    def _fit_token_lengths(self, train_dataset, test_dataset, collates):
+        """``dataset_kwargs.adaptive_question_len``: the longest question of
+        both datasets in tokens, under the collates' tokenizer, becomes the
+        collates' question and decoder length (capped at 16 and 20)."""
+        tokenizer = collates[0].tokenizer
+        q_max, d_max = 1, 1
+        for ds in (train_dataset, test_dataset):
+            texts = [ds[i].question.question_text for i in range(len(ds))]
+            for start in range(0, len(texts), 512):
+                chunk = texts[start:start + 512]
+                q = [f"{constants.QUESTION_SPECIAL_TOKEN} {t}" for t in chunk]
+                d = [f"{constants.QUESTION_SPECIAL_TOKEN} {t} "
+                     f"{constants.ANSWER_SPECIAL_TOKEN}" for t in chunk]
+                _, qm = tokenizer(q, constants.QUESTION_MAX_LEN)
+                _, dm = tokenizer(d, constants.MAX_LEN)
+                q_max = max(q_max, int(qm.sum(axis=1).max()))
+                d_max = max(d_max, int(dm.sum(axis=1).max()))
+        for c in collates:
+            c.question_max_len = q_max
+            c.decoder_max_len = d_max
+        if (q_max, d_max) != (constants.QUESTION_MAX_LEN, constants.MAX_LEN):
+            self.logger.log_message(
+                f"Adaptive token lengths: question {q_max} (cap "
+                f"{constants.QUESTION_MAX_LEN}), decoder {d_max} (cap "
+                f"{constants.MAX_LEN}) — trailing pad columns trimmed from "
+                f"the compiled shapes (exact math, masked everywhere)")
+
+    def _setup_feature_cache(self):
+        """Build the frozen-tower feature cache and put both loaders on it
+        (``train/feature_cache.py``); leave it off, with a log line, where
+        the model or the data cannot give the same features."""
+        model = self.model
+        why = None
+        if not hasattr(model, "compute_vision_features"):
+            why = f"{type(model).__name__} has no separable frozen tower"
+        elif not getattr(model, "frozen_modules", lambda: ())():
+            why = "vision tower is fine-tuned"
+        elif not getattr(model, "vision_tower_deterministic",
+                         lambda: True)():
+            # the cache is built without dropout; training runs with it
+            why = "vision tower has stochastic regularization"
+        if why is None:
+            try:
+                self.train_dataloader.dataset[0].image_path
+            except (AttributeError, IndexError):
+                why = "dataset rows carry no image_path"
+        if why is not None:
+            self.logger.log_message(f"Frozen-feature cache: off ({why})")
+            return
+
+        datasets = [self.train_dataloader.dataset,
+                    self.test_dataloader.dataset]
+        collates = [self.train_dataloader.collate_fn,
+                    self.test_dataloader.collate_fn]
+        built, reason = build_feature_cache(
+            model, datasets, collates[0].load_images,
+            batch_size=min(64, max(1, len(datasets[0]))),
+            compute_dtype=self.compute_dtype)
+        if built is None:
+            self.logger.log_message(f"Frozen-feature cache: off ({reason})")
+            return
+        cache, (row_train, row_test), secs = built
+        self._feature_cache = cache
+        self.train_dataloader = CachedFeatureLoader(self.train_dataloader,
+                                                    cache, row_train)
+        self.test_dataloader = CachedFeatureLoader(self.test_dataloader,
+                                                   cache, row_test)
+        for c in collates:
+            c.emit_images = False       # no image decoding in any epoch
+        self.logger.log_message(
+            f"Frozen-feature cache: {cache.features.shape[0]} images, "
+            f"{cache.nbytes / 1e6:.0f} MB {cache.features.dtype} on "
+            f"{cache.features.device}, built in {secs:.1f}s; tower + image "
+            f"preprocessing skipped for all epochs")
 
     def _try_resume(self):
         """Load the best model's weights, as the JAX trainer does when only
@@ -347,8 +454,7 @@ class VQATrainer:
             f"Not implemented by the port, no effect on the numbers: "
             f"steps_per_dispatch={tk.steps_per_dispatch} (one step per "
             f"call), fast_dropout_rng={tk.fast_dropout_rng} (TPU only), "
-            f"cache_frozen_features={tk.cache_frozen_features} (the tower "
-            f"runs every step), num_workers={dk.num_workers}, "
+            f"num_workers={dk.num_workers}, "
             f"use_native_preprocessor={dk.use_native_preprocessor} (the cv2 "
             f"path), use_pallas={cfg.model.use_pallas} (the port's kernels "
             f"are on), use_wandb={tk.use_wandb} (metrics.jsonl only)")

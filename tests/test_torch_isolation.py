@@ -60,7 +60,8 @@ def test_package_has_sources():
                 "models/vit_vqa.py", "models/generation.py", "eval/session.py",
                 "utils/weights.py", "core/constants.py", "core/config.py",
                 "data/pipeline.py", "eval/wups.py", "train/trainer.py",
-                "train/optimizer.py", "train/__main__.py"):
+                "train/optimizer.py", "train/__main__.py",
+                "train/feature_cache.py", "train/vit.py"):
         assert rel in names
     for cu in ("attention.cu", "bottleneck.cu"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", cu))
