@@ -90,6 +90,38 @@ Phases (each raises on failure; nothing is caught):
               step and their backward); then train-step timings of the
               cached, the cache-off and the fine-tuned variants in turns,
               and a profile of each.
+7. resume  -- kill and resume, for each family at full width (B=64, bf16
+              compute; the CNN family with the cache off, so that its
+              steps run the bottleneck kernel; the ViT family with the
+              cache on, the production setting): a child process
+              (``chip_smoke.py --resume-child``) trains with
+              ``checkpoint_every_steps=3`` and SIGKILLs itself after the
+              params ``.next`` of its second pair has landed and before the
+              state ``.next`` (the worst crash window). An uninterrupted
+              trainer with the same seed takes the same 3 steps and one more
+              at dropout 0 on a fixed batch. A trainer with
+              ``load_from_checkpoint`` must then adopt the first pair (step
+              3) and throw away the lone params ``.next``, hold model and
+              optimizer state equal to the pair's files to the bit on the
+              card, set the LRs of the schedule at step 3, and take the same
+              dropout-0 step: loss and update (L2) within 1e-6 relative of
+              the uninterrupted run's. Launches are counted per resumed
+              production step (7 bottleneck for the CNN family; 0 for the
+              cached ViT family) and for the ViT cache's rebuild (36
+              attention). The line gives the pair's bytes, a synchronous
+              pair save's seconds, ``_try_resume``'s seconds and the step
+              time with and without a background pair save in flight (in
+              turns). One CNN epoch with ``trace_dir`` set (2 steps, dropout
+              0, the cache off) must write a trace naming both kernels.
+8. serve_from_checkpoint -- for each family: 2 train steps, ``best-model.pt``
+              through the callbacks, then ``VQAInferenceSession.
+              from_checkpoint`` (timed); ``ask_batch`` on 64 requests must
+              give the trainer's eval-step log-probs on the same requests,
+              collated as the session collates them, within 1e-3, the same
+              top-1 answers, and 6 attention and 7 bottleneck launches (CNN)
+              or 12 attention launches (ViT). The difference from the
+              trainer's own validation batch, whose ViT question columns
+              are trimmed to the longest question, is reported.
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
@@ -100,7 +132,9 @@ forwards of the CNN family (``vit_launches`` over the ViT family's three,
 ``train_epoch_launches`` and ``vit_train_epoch_launches`` over each
 family's training epoch, the cache's build included,
 ``train_launches_per_step`` and ``vit_train_launches_per_step`` per step of
-each variant and for the cache's build);
+each variant and for the cache's build, ``resume_launches`` per resumed
+step and per cache rebuild, ``serve_from_checkpoint_launches`` over the
+64 requests served from a checkpoint);
 ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms`` and attention's
 ``bwd_ms`` are per forward (``bound_share`` is ``bound_ms / ms``):
 the bf16 times of the kernel phase summed over the shapes one
@@ -1571,9 +1605,490 @@ def train_breakdown(torch, model, batch, step):
                             for us, n, name in window["kernels"][:12]]}
 
 
+# --------------------------------------------------------- checkpoint phases
+
+RESUME_EVERY = 3       # the child's checkpoint_every_steps
+# the resumed run's dropout-0 step against the uninterrupted run's: both
+# start from the state of step 3 (restored from the pair, or reached by
+# running on), with the same kernels, batch and order, so a larger gap
+# means that the restored state differs
+RESUME_TOL = 1e-6
+RESUME_CHILD_S = 300   # the child's time limit
+BG_ROUNDS = 2          # step timings with and without a save in flight
+SERVE_CKPT_STEPS = 2
+# served log-probs against the trainer's eval step on the same weights
+# and requests: both run the same bf16 forward, so they should agree to the
+# bit; 1e-3 allows for another order of the same sums
+SERVED_TOL = 1e-3
+
+
+def resume_setup(torch, family, out_dir):
+    """(config, model builder, data) of the resume phase: the reference
+    config at full width, B=64, bf16 compute; the CNN family with the cache
+    off (the bottleneck kernel runs in every step), the ViT family with it
+    on (the production setting)."""
+    size = IMAGE if family == "cnn" else VIT_IMAGE
+    data = train_data(TRAIN_BATCHES, TEST_BATCHES, size)
+    if family == "cnn":
+        cfg = train_config(out_dir)
+        cfg.trainer.cache_frozen_features = False
+        build = lambda: _build_model(torch, torch.float32, True)
+    else:
+        cfg = train_config(out_dir, VIT_NAME)
+        build = lambda: _build_vit_model(torch, torch.float32, True)
+    return cfg, build, data
+
+
+def deterministic(torch):
+    """cuDNN's deterministic algorithms: the child and the reference run
+    must take the same first steps to the bit."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def resume_child(family, out_dir) -> int:
+    """The crashed run: trains with ``checkpoint_every_steps=3`` and
+    SIGKILLs itself when its second pair is about to write the state
+    ``.next``, after the params ``.next`` has landed (the worst crash
+    window)."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic(torch)
+    from t5_resnet_vqa_torch.train import VQATrainer
+    from t5_resnet_vqa_torch.train.callbacks import CheckpointManager
+
+    cfg, build, data = resume_setup(torch, family, out_dir)
+    cfg.trainer.checkpoint_every_steps = RESUME_EVERY
+    answers, train_ds, test_ds, load_images = data
+    real = CheckpointManager._save_file
+    state_writes = []
+
+    def save_file(self, path, tree):
+        if path.endswith("state_dict_checkpoint.pt.next"):
+            state_writes.append(path)
+            if len(state_writes) == 2:
+                os.kill(os.getpid(), signal.SIGKILL)
+        real(self, path, tree)
+
+    CheckpointManager._save_file = save_file
+    with seeded_images(load_images):
+        VQATrainer(build(), cfg, answers, train_ds, test_ds).train()
+    print("the child was not killed", file=sys.stderr)
+    return 3
+
+
+def trainable(trainer):
+    return [p for g in trainer.optimizer.param_groups for p in g["params"]]
+
+
+def fixed_step(torch, trainer, batch):
+    """One step of ``trainer`` at dropout 0 (the model in eval mode) on
+    ``batch``: (loss, the trainable parameters' update)."""
+    params = trainable(trainer)
+    before = [p.detach().clone() for p in params]
+    trainer.model.eval()
+    loss = float(trainer.train_step(batch)[0])
+    trainer.model.train()
+    return loss, [p.detach() - b for p, b in zip(params, before)]
+
+
+def first_batch(torch, loader):
+    from t5_resnet_vqa_torch.data import to_device
+    from t5_resnet_vqa_torch.train.trainer import _device_batch
+
+    return _device_batch(to_device(next(iter(loader)), torch.device(DEVICE)))
+
+
+def tree_equal(torch, got, want) -> bool:
+    """Every tensor of ``got`` (the card) equals ``want`` (a file) to the
+    bit, on the device of ``got``; a bf16 tensor equals its fp32 file
+    value widened."""
+    if isinstance(want, torch.Tensor):
+        return torch.equal(got.float() if got.is_floating_point() else got,
+                           want.to(got.device).to(
+                               torch.float32 if got.is_floating_point()
+                               else got.dtype))
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(
+            tree_equal(torch, got[k], want[k]) for k in want)
+    return got == want
+
+
+def resume_family(torch, card, family):
+    import shutil
+    import signal
+    import tempfile
+
+    from t5_resnet_vqa_torch.data import Prefetcher
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train import VQATrainer
+    from t5_resnet_vqa_torch.train.callbacks import checkpoint_state_dict
+    from t5_resnet_vqa_torch.train.trainer import _device_batch
+
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_resume_{family}_")
+    try:
+        run_dir = os.path.join(out, "run")
+        ck = os.path.join(run_dir, "model_checkpoints")
+        t0 = time.perf_counter()
+        with open(os.path.join(out, "child.log"), "w") as log:
+            child = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--resume-child",
+                 family, run_dir], stdout=log, stderr=subprocess.STDOUT,
+                timeout=RESUME_CHILD_S)
+        child_s = time.perf_counter() - t0
+        if child.returncode != -signal.SIGKILL:
+            with open(os.path.join(out, "child.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"the {family} child exited with "
+                                 f"{child.returncode}, not SIGKILL:\n{tail}")
+        after_kill = sorted(f for f in os.listdir(ck) if f.endswith(
+            (".pt", ".next")))
+        params_next = os.path.join(ck, "checkpoint-model.pt.next")
+        if after_kill != ["checkpoint-model.pt", "checkpoint-model.pt.next",
+                          "state_dict_checkpoint.pt"]:
+            raise AssertionError(f"after the kill: {after_kill}")
+        pair_bytes = sum(os.path.getsize(os.path.join(ck, f)) for f in
+                         ("checkpoint-model.pt", "state_dict_checkpoint.pt"))
+
+        # the uninterrupted run: the same 3 steps, then a dropout-0 step on
+        # a fixed batch
+        deterministic(torch)
+        cfg, build, data = resume_setup(torch, family,
+                                        os.path.join(out, "reference"))
+        answers, train_ds, test_ds, load_images = data
+        with seeded_images(load_images):
+            ref = VQATrainer(build(), cfg, answers, train_ds, test_ds)
+            ref.model.train()
+            for raw, _ in zip(Prefetcher(ref.train_dataloader,
+                                         ref.num_prefetch, ref.device),
+                              range(RESUME_EVERY)):
+                ref.train_step(_device_batch(raw))
+            fixed = first_batch(torch, ref.test_dataloader)
+        pair_params = torch.load(os.path.join(ck, "checkpoint-model.pt"),
+                                 map_location="cpu", weights_only=True)
+        reference_diff = max(
+            float((v.float() - pair_params[k].to(v.device)).abs().max())
+            for k, v in ref.model.state_dict().items()
+            if v.is_floating_point())
+        ref_loss, ref_update = fixed_step(torch, ref, fixed)
+        del ref
+        torch.cuda.empty_cache()
+
+        # the resumed run, its resume timed and its launches counted
+        cfg, build, data = resume_setup(torch, family, run_dir)
+        cfg.trainer.load_from_checkpoint = True
+        original = VQATrainer._try_resume
+        resume_s = []
+
+        def timed_resume(self):
+            t = time.perf_counter()
+            original(self)
+            torch.cuda.synchronize()
+            resume_s.append(time.perf_counter() - t)
+
+        VQATrainer._try_resume = timed_resume
+        A.launches = 0
+        K.launches = 0
+        try:
+            with seeded_images(load_images):
+                res = VQATrainer(build(), cfg, answers, train_ds, test_ds)
+        finally:
+            VQATrainer._try_resume = original
+        rebuild = {"attention": A.launches, "bottleneck": K.launches}
+        if os.path.exists(params_next):
+            raise AssertionError("the lone params .next survived the resume")
+        if (res.start_epoch, res.global_step) != (0, RESUME_EVERY):
+            raise AssertionError(f"resumed at epoch {res.start_epoch}, step "
+                                 f"{res.global_step}: not the first pair")
+        state = torch.load(os.path.join(ck, "state_dict_checkpoint.pt"),
+                           map_location="cpu", weights_only=True)
+        model_equal = tree_equal(torch, res.model.state_dict(), pair_params)
+        moments = res.optimizer.state_dict()["state"]
+        optimizer_equal = tree_equal(torch, moments,
+                                     state["optimizer"]["state"])
+        on_card = all(v.is_cuda for m in moments.values()
+                      for k, v in m.items() if k != "step")
+        lrs = {g["group"]: g["lr"] for g in res.optimizer.param_groups}
+        lr_equal = all(lr == res._schedules[g](RESUME_EVERY)
+                       for g, lr in lrs.items())
+        if not (model_equal and optimizer_equal and on_card and lr_equal):
+            raise AssertionError(
+                f"restored state: model equal {model_equal}, optimizer "
+                f"equal {optimizer_equal}, on the card {on_card}, LRs at "
+                f"the schedule's step {RESUME_EVERY} {lr_equal}")
+        del pair_params, state
+
+        res_loss, res_update = fixed_step(torch, res, fixed)
+        loss_diff = abs(res_loss - ref_loss) / abs(ref_loss)
+        num = sum(float(((a - b).double() ** 2).sum())
+                  for a, b in zip(res_update, ref_update))
+        den = sum(float((b.double() ** 2).sum()) for b in ref_update)
+        update_diff = (num / den) ** 0.5
+        del ref_update, res_update
+        if not (loss_diff <= RESUME_TOL and update_diff <= RESUME_TOL):
+            raise AssertionError(
+                f"the resumed dropout-0 step: loss {res_loss} against "
+                f"{ref_loss} ({loss_diff} relative), update {update_diff} "
+                f"relative (L2); tolerance {RESUME_TOL}")
+
+        # one production step of the resumed run, its launches counted
+        res.model.train()
+        with seeded_images(load_images):
+            batch = first_batch(torch, res.train_dataloader)
+        A.launches = 0
+        K.launches = 0
+        res.train_step(batch)
+        torch.cuda.synchronize()
+        per_step = {"attention": A.launches, "bottleneck": K.launches}
+        want_step = {"attention": 0,
+                     "bottleneck": 7 if family == "cnn" else 0}
+        want_rebuild = {"attention": 0 if family == "cnn"
+                        else 12 * cache_chunks(data), "bottleneck": 0}
+        if per_step != want_step or rebuild != want_rebuild:
+            raise AssertionError(f"launches per resumed step {per_step} "
+                                 f"(expected {want_step}), cache rebuild "
+                                 f"{rebuild} (expected {want_rebuild})")
+
+        # a synchronous pair save, then steps with and without a
+        # background pair save in flight, in turns
+        t = time.perf_counter()
+        res.callbacks.ckpt.save_pair(
+            checkpoint_state_dict(res.model),
+            {"epoch": 0, "global_step": res.global_step,
+             "optimizer": res.optimizer.state_dict(),
+             "scheduler": res.scheduler.state_dict()})
+        pair_save_s = time.perf_counter() - t
+        step = lambda: float(res.train_step(batch)[0])
+        step()
+        times = {"no_save": [], "save_in_flight": []}
+        submit_ms, land_s = [], []
+        for r in range(BG_ROUNDS):
+            for label in (("no_save", "save_in_flight") if r % 2 == 0
+                          else ("save_in_flight", "no_save")):
+                if label == "no_save":
+                    times[label].append(step_ms(torch, step))
+                    continue
+                t = time.perf_counter()
+                res.callbacks.save_epoch_checkpoint(
+                    res.model, 0, res.optimizer, res.scheduler,
+                    res.global_step)
+                torch.cuda.synchronize()
+                submit_ms.append((time.perf_counter() - t) * 1e3)
+                times[label].append(step_ms(torch, step))
+                res.callbacks.ckpt.flush()
+                land_s.append(time.perf_counter() - t)
+        line = {"phase": "resume", "family": family, "card": card,
+                "model": ("resnet50 + t5-base + 3xSGA" if family == "cnn"
+                          else "vit-base + t5-base enc-dec"),
+                "cache": "off" if family == "cnn" else "on",
+                "batch": BATCH, "dtype": "bfloat16 compute, fp32 master "
+                "weights", "checkpoint_every_steps": RESUME_EVERY,
+                "child": {"exit": "SIGKILL", "seconds": child_s,
+                          "killed": "after the params .next of pair 2, "
+                                    "before its state .next"},
+                "files_after_kill": after_kill,
+                "lone_params_next_discarded": True,
+                "adopted_pair": {"epoch": res.start_epoch,
+                                 "global_step": res.global_step},
+                "state_bit_equal": {"model": model_equal,
+                                    "optimizer": optimizer_equal,
+                                    "optimizer_on_card": on_card},
+                "lrs_equal_schedule_at_step": RESUME_EVERY,
+                "reference_state_max_abs_diff_from_pair": reference_diff,
+                "fixed_step": {"loss_reference": ref_loss,
+                               "loss_resumed": res_loss,
+                               "loss_rel_diff": loss_diff,
+                               "update_rel_l2_diff": update_diff,
+                               "tol": RESUME_TOL},
+                "launches_cache_rebuild": rebuild,
+                "launches_per_resumed_step": per_step,
+                "pair_bytes": pair_bytes, "pair_save_s": pair_save_s,
+                "resume_s": resume_s[0],
+                "background_save_step_ms": {
+                    k: float(np.median(v)) for k, v in times.items()},
+                "background_save": {"rounds": BG_ROUNDS,
+                                    "steps_ms": times,
+                                    "submit_ms": submit_ms,
+                                    "submit_to_landed_s": land_s}}
+        del res, step, batch, fixed
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(out, ignore_errors=True)
+    line["seconds"] = time.perf_counter() - t_phase
+    return line
+
+
+def trace_epoch(torch, card):
+    """One CNN epoch (2 steps, dropout 0, the cache off: both kernels run
+    in its steps) with ``trace_dir`` set: the trace must name both
+    kernels."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.train import VQATrainer
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        answers, train_ds, test_ds, load_images = train_data(2, 1)
+        cfg = train_config(os.path.join(out, "run"))
+        cfg.trainer.cache_frozen_features = False
+        cfg.trainer.monitor_test = False
+        cfg.trainer.trace_dir = os.path.join(out, "trace")
+        t0 = time.perf_counter()
+        with seeded_images(load_images):
+            VQATrainer(_build_model(torch, torch.float32, True,
+                                    dropout=False),
+                       cfg, answers, train_ds, test_ds).train()
+        epoch_s = time.perf_counter() - t0
+        files = os.listdir(cfg.trainer.trace_dir)
+        if len(files) != 1:
+            raise AssertionError(f"trace_dir holds {files}")
+        path = os.path.join(cfg.trainer.trace_dir, files[0])
+        with open(path) as f:
+            text = f.read()
+        names = {k: k in text for k in ("attention_bf16", "bottleneck_bf16")}
+        if not all(names.values()):
+            raise AssertionError(f"the trace names the kernels: {names}")
+        return {"file": files[0], "bytes": os.path.getsize(path),
+                "names_kernels": names, "epoch_s": epoch_s}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_resume(torch, card):
+    """Kill-and-resume of both families (see the module docstring), and
+    the ``trace_dir`` epoch. Returns the launch counts."""
+    lines = {family: resume_family(torch, card, family)
+             for family in ("cnn", "vit")}
+    lines["cnn"]["trace_dir"] = trace_epoch(torch, card)
+    for line in lines.values():
+        emit(line)
+    return {name: {family: {"cache_rebuild": line["launches_cache_rebuild"][
+        name], "per_resumed_step": line["launches_per_resumed_step"][name]}
+        for family, line in lines.items()}
+        for name in ("attention", "bottleneck")}
+
+
+def serve_from_checkpoint_family(torch, card, family):
+    """Train 2 steps, write ``best-model.pt`` through the callbacks, serve
+    it with ``VQAInferenceSession.from_checkpoint`` and hold ``ask_batch``
+    on 64 requests against the trainer's eval step on the same requests."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.data import Annotation, Question, Sample
+    from t5_resnet_vqa_torch.data import Prefetcher, to_device
+    from t5_resnet_vqa_torch.eval import VQAInferenceSession
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train import VQATrainer
+    from t5_resnet_vqa_torch.train.trainer import _device_batch
+
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_serve_ckpt_{family}_")
+    try:
+        cfg, build, data = resume_setup(torch, family, out)
+        cfg.trainer.cache_frozen_features = False
+        answers, train_ds, test_ds, load_images = data
+        requests = [(s.image_path, s.question.question_text)
+                    for s in test_ds[:BATCH]]
+        with seeded_images(load_images):
+            trainer = VQATrainer(build(), cfg, answers, train_ds, test_ds)
+            trainer.model.train()
+            for raw, _ in zip(Prefetcher(trainer.train_dataloader,
+                                         trainer.num_prefetch,
+                                         trainer.device),
+                              range(SERVE_CKPT_STEPS)):
+                trainer.train_step(_device_batch(raw))
+            trainer.callbacks.save_checkpoint(trainer.model, 0, answers)
+            trainer.callbacks.ckpt.flush()
+            samples = [Sample(Question(q, f"req_{i}", f"req_{i}"),
+                              Annotation(f"req_{i}", f"req_{i}",
+                                         [answers[0]]), img)
+                       for i, (img, q) in enumerate(requests)]
+            trimmed = _device_batch(to_device(
+                trainer.test_dataloader.collate_fn(samples),
+                torch.device(DEVICE)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session = VQAInferenceSession.from_checkpoint(cfg,
+                                                          batch_size=BATCH)
+            torch.cuda.synchronize()
+            from_checkpoint_s = time.perf_counter() - t0
+            A.launches = 0
+            K.launches = 0
+            results = session.ask_batch(requests, top_k=ANSWERS)
+            launches = {"attention": A.launches, "bottleneck": K.launches}
+            # the trainer's eval step on the requests as the session
+            # collates them, and as validation does: the ViT trainer trims
+            # trailing pad columns (adaptive_question_len), the session keeps
+            # the full lengths, as the JAX session does
+            full = session._to_device(session._collate_chunk(requests))
+            trainer.model.eval()
+            with torch.inference_mode(), torch.autocast(
+                    DEVICE, dtype=torch.bfloat16):
+                want, want_trimmed = (trainer.model(**b)[0].float().cpu()
+                                      .numpy() for b in (full, trimmed))
+        del trainer, full, trimmed
+        got = np.full_like(want, -np.inf)
+        index = {a: i for i, a in enumerate(answers)}
+        for row, r in zip(got, results):
+            for a, p in zip(r["top_answers"], r["top_probs"]):
+                row[index[a]] = np.log(p)
+        diff = float(np.abs(got - want).max())
+        top1_equal = bool((got.argmax(-1) == want.argmax(-1)).all())
+        trimmed_diff = float(np.abs(got - want_trimmed).max())
+        trimmed_top1 = float((got.argmax(-1) == want_trimmed.argmax(-1))
+                             .mean())
+        want_launches = ({"attention": 6, "bottleneck": 7} if family == "cnn"
+                         else {"attention": 12, "bottleneck": 0})
+        if launches != want_launches:
+            raise AssertionError(f"served launches {launches}, expected "
+                                 f"{want_launches}")
+        if not (diff <= SERVED_TOL and top1_equal):
+            raise AssertionError(f"served log-probs {diff} from the "
+                                 f"trainer's eval (tolerance {SERVED_TOL}),"
+                                 f" top-1 equal {top1_equal}")
+        del session
+        torch.cuda.empty_cache()
+        return {"phase": "serve_from_checkpoint", "family": family,
+                "card": card, "model": ("resnet50 + t5-base + 3xSGA"
+                                        if family == "cnn" else
+                                        "vit-base + t5-base enc-dec"),
+                "train_steps": SERVE_CKPT_STEPS, "requests": len(requests),
+                "dtype": "bfloat16 compute, fp32 weights",
+                "from_checkpoint_s": from_checkpoint_s,
+                "logprob_max_abs_diff": diff, "tol": SERVED_TOL,
+                "top1_equal": top1_equal,
+                "trimmed_validation_batch": {
+                    "logprob_max_abs_diff": trimmed_diff,
+                    "top1_agreement": trimmed_top1},
+                "launches": launches}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_serve_from_checkpoint(torch, card):
+    lines = {f: serve_from_checkpoint_family(torch, card, f)
+             for f in ("cnn", "vit")}
+    for line in lines.values():
+        emit(line)
+    return {name: {f: line["launches"][name] for f, line in lines.items()}
+            for name in ("attention", "bottleneck")}
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--resume-child"]:
+        return resume_child(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU "
               "port and has nothing to run here", file=sys.stderr)
@@ -1594,6 +2109,8 @@ def main() -> int:
     vit_launches = phase_serve_vit(torch, card)
     train = phase_train(torch, card)
     train_vit = phase_train_vit(torch, card)
+    resumed = phase_resume(torch, card)
+    served = phase_serve_from_checkpoint(torch, card)
 
     print(card, flush=True)
 
@@ -1615,7 +2132,9 @@ def main() -> int:
                         "train_launches_per_step": train["per_step"][name],
                         "vit_train_epoch_launches": train_vit["epoch"][name],
                         "vit_train_launches_per_step":
-                            train_vit["per_step"][name]})
+                            train_vit["per_step"][name],
+                        "resume_launches": resumed[name],
+                        "serve_from_checkpoint_launches": served[name]})
     vit = att["vit"]
     kernels[0].update({"bwd_ms": att["bwd_ms"],
                        "plain_bwd_ms": att["plain_bwd_ms"],

@@ -5,7 +5,8 @@ Text and labels, shared by both families: question "[Question] {q}" padded
 to 16; decoder text "+ [Answer]" and answers padded to 20; label = a
 randomly chosen answer's index in the answer space (out-of-vocabulary
 answers fall back to the 'O' class), drawn from a seeded numpy Generator.
-Images, per family: cv2 decode -> RGB -> resize, then
+Images, per family: cv2 decode -> RGB -> resize (in fp32 through the
+native library for a bilinear float batch with ``use_native``), then
 
   * CNN: 256^2 with the configured interpolation, ToTensor only
     (unnormalized), key ``image_tensors``;
@@ -42,6 +43,7 @@ class DaquarCollateBase:
         eval_mode: bool = False,
         seed: int = 0,
         tokenizer=None,
+        use_native: bool = True,
         emit_uint8: bool = False,
     ):
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
@@ -56,6 +58,7 @@ class DaquarCollateBase:
         self._oov_index = self._answer_index.get("O", 0)
         # False: batches carry no image array (decode and resize skipped)
         self.emit_images = True
+        self.use_native = use_native
         self.emit_uint8 = emit_uint8
         self.resizing_dimensions = (constants.CNN_IMAGE_SIZE,
                                     constants.CNN_IMAGE_SIZE)
@@ -111,7 +114,7 @@ class DaquarCollateBase:
         return load_image_batch(
             list(paths), self.resizing_dimensions,
             self.interpolation_strategy, normalize=self.normalize,
-            emit_uint8=self.emit_uint8)
+            use_native=self.use_native, emit_uint8=self.emit_uint8)
 
     def __call__(self, samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
         images = (self.load_images([s.image_path for s in samples])
@@ -127,9 +130,10 @@ class DaquarCnnCollate(DaquarCollateBase):
                  resizing_dimensions=(constants.CNN_IMAGE_SIZE,
                                       constants.CNN_IMAGE_SIZE),
                  lang_model: str = "t5-base", eval_mode: bool = False,
-                 seed: int = 0, tokenizer=None, emit_uint8: bool = False):
+                 seed: int = 0, tokenizer=None, use_native: bool = True,
+                 emit_uint8: bool = False):
         super().__init__(answer_spaces, lang_model, eval_mode, seed,
-                         tokenizer, emit_uint8)
+                         tokenizer, use_native, emit_uint8)
         self.interpolation_strategy = interpolation_strategy
         self.resizing_dimensions = tuple(resizing_dimensions)
 
@@ -143,8 +147,9 @@ class DaquarVitCollate(DaquarCollateBase):
 
     def __init__(self, answer_spaces: Sequence[str],
                  lang_model: str = "t5-base", eval_mode: bool = False,
-                 seed: int = 0, tokenizer=None, emit_uint8: bool = False):
+                 seed: int = 0, tokenizer=None, use_native: bool = True,
+                 emit_uint8: bool = False):
         super().__init__(answer_spaces, lang_model, eval_mode, seed,
-                         tokenizer, emit_uint8)
+                         tokenizer, use_native, emit_uint8)
         self.resizing_dimensions = (constants.VIT_IMAGE_SIZE,
                                     constants.VIT_IMAGE_SIZE)

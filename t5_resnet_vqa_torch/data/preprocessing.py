@@ -1,11 +1,15 @@
 """Host-side image preprocessing: decode -> RGB -> resize -> scale/normalize.
 
-The cv2 path of the JAX package's ``data/preprocessing.py``: cv2.imread
-(BGR) -> cvtColor RGB -> cv2.resize with the configured interpolation ->
-float in [0, 1] (ToTensor parity, unnormalized as the CNN family takes it;
-the ViT family also normalizes with the image processor's mean and std),
-NHWC. ``cv2`` is imported inside the functions, so the module imports on
-machines without it.
+The JAX package's ``data/preprocessing.py``: cv2.imread (BGR) -> cvtColor
+RGB -> resize -> float in [0, 1] (ToTensor parity, unnormalized as the CNN
+family takes it; the ViT family also normalizes with the image processor's
+mean and std), NHWC. The float path resizes bilinearly in fp32 through the
+native library (``native/preproc.cpp``) when ``use_native`` is set, as the
+JAX package does; otherwise, and for the other interpolations and the
+uint8 wire, cv2 resizes in uint8. The two differ by up to one uint8 step.
+Unlike the JAX package, a native library that cannot be built raises
+instead of falling back to cv2. ``cv2`` is imported inside the functions,
+so the module imports on machines without it.
 """
 
 from __future__ import annotations
@@ -63,13 +67,21 @@ def load_image_batch(
     size: Tuple[int, int],
     interpolation_strategy: str = "bilinear_interpolation",
     normalize: Optional[Tuple[Sequence[float], Sequence[float]]] = None,
+    use_native: bool = True,
     emit_uint8: bool = False,
 ) -> np.ndarray:
     """-> [B, H, W, 3] float32 NHWC batch (normalized when ``normalize`` is
     given), or the resized uint8 batch when ``emit_uint8`` (the model then
-    scales and normalizes on the device)."""
+    scales and normalizes on the device). ``use_native`` sends a bilinear
+    float batch through the native fp32 resize; it is ignored under
+    ``emit_uint8``."""
     w, h = size
     paths = list(paths)
+    if (use_native and not emit_uint8
+            and interpolation_strategy == "bilinear_interpolation"):
+        from ..native import loader
+        return loader.get_lib().resize_scale_batch(
+            [decode_image(p) for p in paths], (h, w), normalize)
     out = np.empty((len(paths), h, w, 3),
                    np.uint8 if emit_uint8 else np.float32)
     for i, path in enumerate(paths):

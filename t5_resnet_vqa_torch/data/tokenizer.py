@@ -10,6 +10,8 @@ contract:
 
   * ``HFTokenizer`` — wraps the real HF tokenizer when its files are cached
     locally (offline machines usually have none).
+  * ``TokenizerFileTokenizer`` — a user-supplied ``tokenizer.json`` read
+    by the ``tokenizers`` runtime (real ids offline).
   * ``HashTokenizer`` — deterministic offline fallback with the same API and
     id layout: pad=0, eos=1 (</s>), unk=2, word ids hashed into
     [1000, 32000), special tokens pinned at 32100+ in the reference's
@@ -182,13 +184,61 @@ class HFTokenizer:
                                skip_special_tokens=skip_special_tokens)
 
 
+class TokenizerFileTokenizer:
+    """Real-vocabulary tokenizer from a user-supplied ``tokenizer.json``.
+
+    The offline path to real ids: without sentencepiece or an HF cache, the
+    ``tokenizers`` (fast) runtime reads t5-base's ``tokenizer.json`` from
+    next to the data and gives the exact sentencepiece ids the reference's
+    embeddings were trained on (config key ``dataset_kwargs.tokenizer_file``).
+
+    Special tokens are registered in the reference's order
+    (resnet_vqa_daquar_dataset.py:121-129); for t5-base's 32100-entry
+    tokenizer.json they land on ids 32100..32113 — inside the model's 32128
+    embedding rows, same as the reference's un-resized registration.
+    """
+
+    def __init__(self, tokenizer_file: str):
+        from tokenizers import Tokenizer  # deferred import
+
+        self.tok = Tokenizer.from_file(tokenizer_file)
+        self.tok.add_special_tokens(list(SPECIAL_TOKENS))
+        pad = self.tok.token_to_id("<pad>")
+        eos = self.tok.token_to_id("</s>")
+        self.pad_token_id = constants.PAD_TOKEN_ID if pad is None else pad
+        self.eos_token_id = constants.EOS_TOKEN_ID if eos is None else eos
+        self.vocab_size = max(self.tok.get_vocab_size(),
+                              constants.T5_VOCAB_SIZE)
+        self.scheme = "tokenizer-file"
+
+    def __call__(self, texts: Sequence[str], max_length: int,
+                 padding: str = "max_length",
+                 truncation: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+        self.tok.enable_truncation(max_length)
+        self.tok.enable_padding(length=max_length,
+                                pad_id=self.pad_token_id, pad_token="<pad>")
+        encs = self.tok.encode_batch(list(texts))
+        ids = np.asarray([e.ids for e in encs], np.int32)
+        mask = np.asarray([e.attention_mask for e in encs], np.int32)
+        return ids, mask
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        return self.tok.decode([int(i) for i in ids],
+                               skip_special_tokens=skip_special_tokens)
+
+
 def get_tokenizer(lang_model: str = "t5-base",
+                  tokenizer_file: Optional[str] = None,
                   pinned_words: Optional[Sequence[str]] = None):
     """Best available real tokenizer:
 
-    1. HF AutoTokenizer when its files are cached locally,
-    2. HashTokenizer (deterministic offline fallback; ``pinned_words`` —
+    1. a user-supplied ``tokenizer.json`` (real vocabulary, works offline),
+    2. HF AutoTokenizer when its files are cached locally,
+    3. HashTokenizer (deterministic offline fallback; ``pinned_words`` —
        typically the answer space — get collision-free ids)."""
+    if tokenizer_file:
+        return TokenizerFileTokenizer(tokenizer_file)
     try:
         return HFTokenizer(lang_model)
     except (ImportError, OSError, ValueError):

@@ -3,11 +3,18 @@ surface).
 
 PyTorch counterpart of ``VQAInferenceSession`` in the JAX package's
 ``eval/session.py``: requests are collated exactly as in training (CNN:
-unnormalized 256^2 images; ViT: 224^2 pixel values with mean = std = 0.5,
-both as uint8 on the wire), padded up to a fixed batch, run under
-``torch.inference_mode`` with the model in ``eval()``, and decoded:
-``ask_batch`` against the answer space, ``generate_batch`` (ViT family
-only) into token ids and text.
+unnormalized 256^2 images with the configured interpolation; ViT: 224^2
+pixel values with mean = std = 0.5; uint8 on the wire, or float from the
+host, bilinear through the native resize, with ``uint8_wire=False``),
+padded up to a fixed batch, run under ``torch.inference_mode`` with the
+model in ``eval()``, and decoded: ``ask_batch`` against the answer space,
+``generate_batch`` (ViT family only) into token ids and text.
+
+``from_checkpoint`` serves what a trainer wrote: ``best-model.pt`` and the
+answer space of ``model_ckpt_info.json`` under the config's output
+directory, with the config's image path and tokenizer. It computes as the
+trainer's eval step does (fp32 weights under autocast to the compute dtype,
+a frozen tower held in that dtype), so served answers equal validation's.
 
 Both launch every chunk's work before they read any result back, so chunk
 k+1's host preprocessing overlaps chunk k's device work (CUDA launches are
@@ -41,13 +48,19 @@ class VQAInferenceSession:
     ``state_dict``, when given, is loaded into ``model`` with
     ``strict=True``. The model is moved to ``device`` (default ``"cuda"``,
     which raises without a card; the CPU only when named) and put in
-    ``eval()`` mode.
+    ``eval()`` mode. With a ``compute_dtype`` other than fp32 the forward
+    runs under autocast to it and a frozen tower is held in it, as in the
+    trainer.
     """
 
     def __init__(self, model: torch.nn.Module,
                  state_dict: Optional[Mapping[str, torch.Tensor]],
                  answer_spaces: Sequence[str], family: str = CNN_FAMILY,
                  batch_size: int = 8, image_size: int = 256,
+                 interpolation_strategy: str = "bilinear_interpolation",
+                 lang_model: str = "t5-base", tokenizer=None,
+                 uint8_wire: bool = True,
+                 compute_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None):
         if family not in (CNN_FAMILY, VIT_FAMILY):
             raise NotImplementedError(
@@ -57,19 +70,74 @@ class VQAInferenceSession:
         self.family = family
         self.answer_spaces = list(answer_spaces)
         self.batch_size = int(batch_size)
-        # uint8 images on the wire; the model scales (and, for the ViT
-        # family, normalizes) them on the device
+        self.compute_dtype = compute_dtype
+        # with uint8 on the wire the model scales (and, for the ViT family,
+        # normalizes) the images on the device
+        kw = dict(lang_model=lang_model, eval_mode=True, tokenizer=tokenizer,
+                  emit_uint8=uint8_wire)
         if family == CNN_FAMILY:
             self.collate = DaquarCnnCollate(
-                self.answer_spaces,
-                resizing_dimensions=(image_size, image_size),
-                eval_mode=True, emit_uint8=True)
+                self.answer_spaces, interpolation_strategy,
+                resizing_dimensions=(image_size, image_size), **kw)
         else:
-            self.collate = DaquarVitCollate(
-                self.answer_spaces, eval_mode=True, emit_uint8=True)
+            self.collate = DaquarVitCollate(self.answer_spaces, **kw)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).eval()
+        from ..train.trainer import prepare_model
+        self.model = prepare_model(model, self.device, compute_dtype).eval()
+
+    @classmethod
+    def from_checkpoint(cls, config, batch_size: int = 8, tokenizer=None,
+                        device: DeviceLike = None) -> "VQAInferenceSession":
+        """Serve ``best-model.pt`` and the answer space of
+        ``model_ckpt_info.json`` from ``config.trainer.output_dir``, with
+        the config's model, image path, tokenizer and compute dtype.
+        ``device=None`` is the config's ``trainer.device`` (the card unless
+        it says "cpu"). The JAX session's ``mesh`` has no counterpart yet
+        (ROADMAP.md, modules item 11)."""
+        from ..data import get_tokenizer
+        from ..train import factory
+        from ..train.callbacks import CheckpointManager
+        from ..train.trainer import config_compute_dtype, trainer_device
+
+        dk = config.dataset
+        if dk.reduced_decode:
+            raise NotImplementedError(
+                "the port does not implement dataset_kwargs.reduced_decode "
+                "(reduced image decoding: ROADMAP.md, modules item 8)")
+        ckpt = CheckpointManager(config.trainer.output_dir)
+        info = ckpt.read_json("model_ckpt_info.json")
+        if info is None:
+            raise FileNotFoundError(
+                f"no model_ckpt_info.json under {ckpt.output_dir} (train "
+                f"first; the answer space is part of the checkpoint "
+                f"contract)")
+        answer_spaces = info["answer_spaces"]
+        device = (trainer_device(config.trainer.device) if device is None
+                  else resolve_device(device))
+        model, family = factory.build_model(config.model, len(answer_spaces),
+                                            device=device)
+        if tokenizer is None and dk.tokenizer_file:
+            tokenizer = get_tokenizer(dk.language_model_tokenizer,
+                                      tokenizer_file=dk.tokenizer_file)
+        session = cls(
+            model, ckpt.restore_tree("best-model"), answer_spaces, family,
+            batch_size=batch_size, image_size=dk.image_size,
+            interpolation_strategy=dk.interpolation_strategy,
+            lang_model=dk.language_model_tokenizer, tokenizer=tokenizer,
+            uint8_wire=dk.uint8_wire_images,
+            compute_dtype=config_compute_dtype(config), device=device)
+        # the trainer's resume guard: another id layout would scramble
+        # every question's token ids
+        saved = info.get("tokenizer_scheme")
+        scheme = getattr(session.collate.tokenizer, "scheme", "unknown")
+        if saved is not None and saved != scheme:
+            raise ValueError(
+                f"Tokenizer scheme mismatch: checkpoint was trained with "
+                f"{saved!r} but this session tokenizes with {scheme!r}. "
+                f"Point dataset_kwargs at the original tokenizer "
+                f"(tokenizer_file / language_model_tokenizer).")
+        return session
 
     # ------------------------------------------------------------------ api
 
@@ -126,7 +194,7 @@ class VQAInferenceSession:
                     batch["decoder_question_input_ids"],
                     batch["decoder_question_attention_masks"],
                     batch["pixel_values"])
-            with torch.inference_mode():
+            with torch.inference_mode(), self._autocast():
                 if num_beams > 1:
                     tokens, scores = generation.beam_generate(
                         self.model, *args,
@@ -175,9 +243,13 @@ class VQAInferenceSession:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device, non_blocking=True) for k, v in batch.items()}
 
+    def _autocast(self):
+        from ..train.trainer import _autocast
+        return _autocast(self.device, self.compute_dtype)
+
     def _predict(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """One forward on a device batch; returns fp32 log-probs [B, A]."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self._autocast():
             log_probs, _ = self.model(**batch)
         return log_probs
 

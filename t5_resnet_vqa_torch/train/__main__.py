@@ -7,9 +7,16 @@ repo-root ``train_faster_rcnn_vqa.py``):
 Loads the six-group JSON config with dotted ``--set`` overrides, reads the
 answer space, builds the CNN-family model named by
 ``model_kwargs.vision_model_name`` (a ViT name in the shared reference file
-means resnet50 here, as in the JAX entry point), resumes from
-``best-model.pt`` when ``load_from_checkpoint`` is set, and trains. It runs
-on the card unless ``--set trainer_kwargs.device=cpu`` names the CPU. The
+means resnet50 here, as in the JAX entry point), and trains. It runs on
+the card unless ``--set trainer_kwargs.device=cpu`` names the CPU.
+
+To resume a killed run, run the same command with
+``--set trainer_kwargs.load_from_checkpoint=true``: the trainer takes the
+last ``checkpoint-model.pt`` + ``state_dict_checkpoint.pt`` pair under
+``<output_dir>/model_checkpoints`` (weights, optimizer and schedule, epoch
+and step; the interrupted epoch runs again), or ``best-model.pt`` weights
+alone where no pair exists. ``trainer_kwargs.checkpoint_every_steps=N``
+also writes the pair every N steps. The
 ViT family has its own entry point, ``python -m t5_resnet_vqa_torch.train.vit``.
 """
 
@@ -35,7 +42,7 @@ def parse_args(argv=None, default_vision: str = "resnet50",
     if args.data_parallel or args.model_parallel != 1:
         raise NotImplementedError(
             "the port trains on one device; a mesh comes with ROADMAP.md, "
-            "modules item 13")
+            "modules item 11")
     cfg = Config.from_json(args.config, overrides=args.set)
     if cfg.model.vision_model_name.startswith("google/"):
         cfg.model.vision_model_name = default_vision

@@ -27,8 +27,8 @@ VIT_FAMILY = "vit"
 CROSS_FAMILY = "cross_attention"
 
 _NOT_PORTED = {
-    "faster-rcnn": "the Faster-RCNN family (ROADMAP.md, modules item 9)",
-    CROSS_FAMILY: "the CrossAttention family (ROADMAP.md, modules item 11)",
+    "faster-rcnn": "the Faster-RCNN family (ROADMAP.md, modules item 4)",
+    CROSS_FAMILY: "the CrossAttention family (ROADMAP.md, modules item 5)",
 }
 
 

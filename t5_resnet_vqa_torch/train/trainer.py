@@ -9,6 +9,18 @@ package's ``train/trainer.py``, with its log lines and artifacts:
     every 10% with per-group LRs and secs/batch), the epoch's train WUPS,
     then validation: loss, WUPS, best-model checkpoint and
     ``validation_predictions/<epoch>_validation_predictions.json``;
+  * per epoch end: the ``checkpoint-model.pt`` + ``state_dict_checkpoint.pt``
+    pair (model weights; epoch + 1, global step, optimizer and scheduler
+    state) as one background save, and ``training_progress.json``
+    synchronously; with ``checkpoint_every_steps`` the pair also every N
+    steps (it carries the running epoch, which a resume runs again); with
+    ``max_checkpoint_lag_epochs`` the loop waits for the saves when the
+    last landed pair trails training by more epochs than that;
+  * ``load_from_checkpoint`` resumes from the pair (weights, AdamW moments,
+    the schedule's position, epoch and step), or else from ``best-model.pt``
+    weights alone, and reports how far the previous run had got;
+  * ``trace_dir``: a ``torch.profiler`` Chrome trace of epoch 0's steps;
+    ``compute_rouge``: ROUGE-1/2/L of the validation predictions;
   * ``metrics.jsonl`` records; KeyboardInterrupt saves and stops.
 
 One train step (``make_train_step``) is the JAX step in PyTorch: forward
@@ -37,7 +49,9 @@ gathered ``vision_features`` in place of the images.
 Knobs of the JAX trainer that change nothing in the numbers are named in
 one startup log line and otherwise ignored; knobs that would change what
 is computed or written raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+item that brings them (``reduced_decode``, OK-VQA). As in the JAX package,
+a resume restores neither the shuffle order nor the dropout generator: a
+resumed epoch does not replay an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -62,9 +76,12 @@ from ..data import (
     DaquarVitCollate,
     DataLoader,
     Prefetcher,
+    get_tokenizer,
     load_answer_spaces,
 )
+from ..eval.rouge import compute_rouge_metric, stemming_active
 from ..eval.wups import average_wups, wup_measure, wups_mode
+from ..utils import profiling
 from ..utils.time_utils import convert_time_to_readable_format
 from .callbacks import EarlyStopping
 from .factory import CNN_FAMILY, VIT_FAMILY, build_model, model_family
@@ -96,6 +113,12 @@ def trainer_device(name: str) -> torch.device:
     if name == "cpu":
         return torch.device("cpu")
     return resolve_device(name if name.startswith("cuda") else "cuda")
+
+
+def config_compute_dtype(config: Config) -> torch.dtype:
+    """bf16 when the model config asks for it or ``mxp_training`` is set."""
+    return (torch.bfloat16 if config.model.compute_dtype == "bfloat16"
+            or config.trainer.mxp_training else torch.float32)
 
 
 def prepare_model(model: nn.Module, device: torch.device,
@@ -157,9 +180,12 @@ def make_eval_step(model: nn.Module,
 def build_collates(dk: DatasetConfig, answer_spaces: List[str], seed: int,
                    tokenizer=None, family: str = CNN_FAMILY):
     """(train collate, eval collate) of ``family`` from the dataset config,
-    as the JAX trainer builds them (cv2 image path, seeded answer choice)."""
+    as the JAX trainer builds them (the image path of
+    ``use_native_preprocessor`` and ``uint8_wire_images``, seeded answer
+    choice)."""
     kw = dict(lang_model=dk.language_model_tokenizer, seed=seed,
-              tokenizer=tokenizer, emit_uint8=dk.uint8_wire_images)
+              tokenizer=tokenizer, use_native=dk.use_native_preprocessor,
+              emit_uint8=dk.uint8_wire_images)
     if family == VIT_FAMILY:
         return (DaquarVitCollate(answer_spaces, **kw),
                 DaquarVitCollate(answer_spaces, eval_mode=True, **kw))
@@ -172,20 +198,12 @@ def build_collates(dk: DatasetConfig, answer_spaces: List[str], seed: int,
 def _refuse_unported(config: Config) -> None:
     """Raise on the knobs whose JAX behaviour the port does not have and
     that would change what is computed or written."""
-    tk, dk = config.trainer, config.dataset
+    dk = config.dataset
     refused = [
-        (tk.checkpoint_every_steps > 0, "trainer_kwargs.checkpoint_every_steps"
-         " > 0 (periodic checkpoint pairs: ROADMAP.md, modules item 7)"),
-        (tk.compute_rouge, "trainer_kwargs.compute_rouge (ROUGE: ROADMAP.md, "
-         "modules item 8)"),
-        (bool(tk.trace_dir), "trainer_kwargs.trace_dir (the trainer's "
-         "profiler trace: ROADMAP.md, modules item 7)"),
         (dk.reduced_decode != 0, "dataset_kwargs.reduced_decode (reduced "
-         "image decoding: ROADMAP.md, modules item 12)"),
-        (bool(dk.tokenizer_file), "dataset_kwargs.tokenizer_file (the "
-         "tokenizer.json tokenizer: ROADMAP.md, modules item 6)"),
+         "image decoding: ROADMAP.md, modules item 8)"),
         (dk.dataset_type != "daquar", f"dataset_kwargs.dataset_type="
-         f"{dk.dataset_type!r} (OK-VQA: ROADMAP.md, modules item 12)"),
+         f"{dk.dataset_type!r} (OK-VQA: ROADMAP.md, modules item 7)"),
     ]
     for hit, what in refused:
         if hit:
@@ -206,14 +224,12 @@ class VQATrainer:
             raise NotImplementedError(
                 f"the port trains the {CNN_FAMILY!r} and {VIT_FAMILY!r} "
                 f"families, not {self.family!r} (ROADMAP.md, modules "
-                f"item 11)")
+                f"item 5)")
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
 
         tk = config.trainer
         self.device = trainer_device(tk.device)
-        self.compute_dtype = (
-            torch.bfloat16 if config.model.compute_dtype == "bfloat16"
-            or tk.mxp_training else torch.float32)
+        self.compute_dtype = config_compute_dtype(config)
         self.model = prepare_model(model, self.device, self.compute_dtype)
         self.epochs = tk.epochs
         self.output_dir = tk.output_dir
@@ -226,6 +242,12 @@ class VQATrainer:
             self.output_dir, project=tk.wandb_project,
             config=config.to_dict())
         self.logger.log_message(f"WUPS metric mode: {wups_mode()}")
+        if tk.compute_rouge:
+            # the card's machine has no nltk: say which scorer runs
+            self.logger.log_message(
+                "ROUGE stemming: " + ("on (nltk PorterStemmer)"
+                                      if stemming_active() else
+                                      "off (nltk does not import)"))
 
         self._init_dataloaders(train_dataset, test_dataset, tokenizer)
 
@@ -242,12 +264,19 @@ class VQATrainer:
         self.global_step = 0
         self.start_epoch = 0
         self.cur_epoch = 0
+        self._last_ckpt_step = 0
+        # the last epoch whose recovery pair has landed (set by the save
+        # worker, read by the loop for max_checkpoint_lag_epochs)
+        self._durable_epoch = 0
 
         cb = config.callbacks
         self.callbacks = EarlyStopping(
             self.logger, self.output_dir,
             save_final_model=cb.save_final_model, patience=cb.patience,
             mode=cb.mode, threshold=cb.threshold)
+        if tk.checkpoint_snapshot_budget_mb:
+            self.callbacks.ckpt.snapshot_budget_bytes = (
+                tk.checkpoint_snapshot_budget_mb * 2 ** 20)
         self.tokenizer_scheme = getattr(
             self.train_dataloader.collate_fn.tokenizer, "scheme", "unknown")
         self.callbacks.tokenizer_scheme = self.tokenizer_scheme
@@ -271,6 +300,11 @@ class VQATrainer:
 
     def _init_dataloaders(self, train_dataset, test_dataset, tokenizer):
         dk = self.config.dataset
+        if tokenizer is None and dk.tokenizer_file:
+            tokenizer = get_tokenizer(dk.language_model_tokenizer,
+                                      tokenizer_file=dk.tokenizer_file)
+            self.logger.log_message(
+                f"Tokenizer: real vocabulary from {dk.tokenizer_file}")
         if train_dataset is None:
             train_dataset = DaquarDataset(dk.root_data_dir, dk.train_csv_file,
                                           dk.images_dir, "train")
@@ -375,22 +409,86 @@ class VQATrainer:
             f"preprocessing skipped for all epochs")
 
     def _try_resume(self):
-        """Load the best model's weights, as the JAX trainer does when only
-        ``best-model`` exists: weights only, no optimizer state, from
-        epoch 0 (the epoch checkpoint pair is not ported yet)."""
+        """Resume as the JAX trainer does: from the ``checkpoint-model`` +
+        ``state_dict_checkpoint`` pair when it exists (weights, optimizer
+        and scheduler state, epoch and global step, all from one training
+        point), else from ``best-model`` weights alone, with a fresh
+        optimizer: best-model weights beside an optimizer state from
+        another point would mix two training states. A pair without
+        ``global_step`` resumes at step 0. The interrupted epoch runs
+        again."""
         ck = self.callbacks.ckpt
         info = ck.read_json("model_ckpt_info.json")
-        saved = None if info is None else info.get("tokenizer_scheme")
-        if saved is not None and saved != self.tokenizer_scheme:
-            raise ValueError(
-                f"Tokenizer scheme mismatch: checkpoint was trained with "
-                f"{saved!r} but this run tokenizes with "
-                f"{self.tokenizer_scheme!r}; start a fresh output_dir.")
-        if ck.exists("best-model.pt"):
-            self.model.load_state_dict(ck.load_model("best-model.pt"),
+        if info is not None:
+            saved = info.get("tokenizer_scheme")
+            if saved is not None and saved != self.tokenizer_scheme:
+                raise ValueError(
+                    f"Tokenizer scheme mismatch: checkpoint was trained with "
+                    f"{saved!r} but this run tokenizes with "
+                    f"{self.tokenizer_scheme!r}. Point dataset_kwargs at the "
+                    f"original tokenizer (tokenizer_file / language_model_"
+                    f"tokenizer) or start a fresh output_dir.")
+            elif saved is None and str(
+                    self.tokenizer_scheme).startswith("hash"):
+                self.logger.log_message(
+                    "WARNING: checkpoint predates tokenizer-scheme metadata; "
+                    "if it was trained before hash-v2 answer-space pinning, "
+                    "its token ids do not match this run's "
+                    f"({self.tokenizer_scheme})")
+        paired = ck.exists("checkpoint-model")
+        params_name = "checkpoint-model" if paired else "best-model"
+        if ck.exists(params_name):
+            self.model.load_state_dict(ck.restore_tree(params_name),
                                        strict=True)
             self.logger.log_line()
-            self.logger.log_message("Loaded from Best Model: best-model")
+            self.logger.log_message(
+                "Loaded params from checkpoint-model" if paired
+                else "Loaded from Best Model: best-model")
+        if not paired and ck.exists("state_dict_checkpoint"):
+            self.logger.log_message(
+                "Skipping optimizer state restore: state_dict_checkpoint is "
+                "paired with checkpoint-model, not best-model")
+        if paired and ck.exists("state_dict_checkpoint"):
+            state = ck.restore_tree("state_dict_checkpoint")
+            # the pair brings the moments (onto the parameters' device, with
+            # AMSGrad's max_exp_avg_sq and the step counts) and the
+            # schedule's position; this run's config brings the
+            # hyperparameters and the schedule, whose length may differ, as
+            # the JAX chain is rebuilt around its restored state
+            hyper = [{k: v for k, v in g.items() if k != "params"}
+                     for g in self.optimizer.param_groups]
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.scheduler.load_state_dict(state["scheduler"])
+            self.scheduler.base_lrs = [h["initial_lr"] for h in hyper]
+            for group, h in zip(self.optimizer.param_groups, hyper):
+                group.update(h)
+                group["lr"] = self._schedules[h["group"]](
+                    self.scheduler.last_epoch)
+            self.start_epoch = int(state["epoch"])
+            self.global_step = int(state.get("global_step", 0))
+            self.logger.log_line()
+            self.logger.log_message(
+                f"Loaded Optimizer from Checkpoint "
+                f"(epoch {self.start_epoch}, step {self.global_step})")
+        # the next periodic save counts from the resumed step
+        self._last_ckpt_step = self.global_step
+        self._durable_epoch = self.start_epoch
+        # training_progress.json is written at every epoch end, so it says
+        # how far the previous run got beyond the durable pair
+        progress = ck.read_json("training_progress.json")
+        if progress is not None:
+            reached = int(progress.get("epochs_completed", 0))
+            if reached > self.start_epoch:
+                self.logger.log_message(
+                    f"WARNING: resuming at epoch {self.start_epoch} but the "
+                    f"previous run completed epoch {reached - 1} — "
+                    f"{reached - self.start_epoch} epoch(s) of work will be "
+                    f"re-run (the durable checkpoint lagged training; bound "
+                    f"this with trainer_kwargs.max_checkpoint_lag_epochs)")
+            elif reached:
+                self.logger.log_message(
+                    f"Resume point is fresh: epoch {self.start_epoch} "
+                    f"matches the last completed epoch")
 
     # --------------------------------------------------------------- logging
 
@@ -455,14 +553,46 @@ class VQATrainer:
             f"steps_per_dispatch={tk.steps_per_dispatch} (one step per "
             f"call), fast_dropout_rng={tk.fast_dropout_rng} (TPU only), "
             f"num_workers={dk.num_workers}, "
-            f"use_native_preprocessor={dk.use_native_preprocessor} (the cv2 "
-            f"path), use_pallas={cfg.model.use_pallas} (the port's kernels "
+            f"use_pallas={cfg.model.use_pallas} (the port's kernels "
             f"are on), use_wandb={tk.use_wandb} (metrics.jsonl only)")
         lg.log_new_line()
 
     def _current_lrs(self) -> Dict[str, float]:
         return {g: float(s(self.global_step))
                 for g, s in self._schedules.items()}
+
+    def _mark_durable(self, epoch: int) -> None:
+        # on the save worker, after the pair landed; max keeps it monotonic
+        # when a periodic save lands after an epoch-end one
+        self._durable_epoch = max(self._durable_epoch, epoch)
+
+    def _enforce_checkpoint_lag_bound(self, epoch_done: int) -> None:
+        """Keep the durable recovery point within
+        ``max_checkpoint_lag_epochs`` of training: past the bound the loop
+        waits for the save queue, trading a stall for a bounded replay
+        after a crash (-1: never wait)."""
+        bound = self.config.trainer.max_checkpoint_lag_epochs
+        if bound < 0:
+            return
+        lag = epoch_done - self._durable_epoch
+        if lag > bound:
+            t0 = time.time()
+            self.callbacks.ckpt.flush()
+            self._durable_epoch = max(self._durable_epoch, epoch_done)
+            self.logger.log_message(
+                f"Checkpoint lag reached {lag} epoch(s) > "
+                f"max_checkpoint_lag_epochs={bound}; drained the save queue "
+                f"(blocked {time.time() - t0:.1f}s) — durable resume point "
+                f"is now epoch {self._durable_epoch}")
+
+    def _save_pair(self, epoch: int) -> None:
+        """Submit the recovery pair; ``epoch`` is the epoch a resume runs
+        first."""
+        self.callbacks.save_epoch_checkpoint(
+            self.model, epoch, self.optimizer, self.scheduler,
+            self.global_step,
+            on_complete=lambda: self._mark_durable(epoch))
+        self._last_ckpt_step = self.global_step
 
     # ------------------------------------------------------------------ train
 
@@ -479,25 +609,55 @@ class VQATrainer:
                 if (self.config.trainer.monitor_test
                         and epoch >= self.config.trainer.first_val_epoch):
                     self.valid_one_epoch()
+                # epoch + 1: the next epoch to run on resume
+                self._save_pair(epoch + 1)
+                # a synchronous record of how far this run got; the resume
+                # reads it to report replayed work after a crash
+                self.callbacks.ckpt.write_json(
+                    "training_progress.json",
+                    {"epochs_completed": epoch + 1,
+                     "global_step": self.global_step})
                 self.logger.sync()
+                self._enforce_checkpoint_lag_bound(epoch + 1)
                 if self.callbacks.should_stop:
                     self.logger.log_message(
                         f"Early stopping after {epoch + 1} epochs "
                         f"(patience {self.callbacks.patience})")
                     break
         except KeyboardInterrupt:
-            self.callbacks.exit_training(self.model)
+            self.callbacks.exit_training(self.model)     # flushes first
             self.logger.log_line()
             self.logger.log_message(
                 "Exiting Training due to Keyboard Interrupt")
             self.tracker.finish()
             return
+        # land every background save before train() returns: callers may
+        # read the files at once
+        self.callbacks.ckpt.flush()
+        superseded = self.callbacks.ckpt.superseded_saves
+        if superseded:
+            self.logger.log_message(
+                f"Checkpoint worker superseded {superseded} queued save(s) "
+                f"with newer state (save slower than epoch cadence)")
         self.tracker.finish()
 
     def train_one_epoch(self):
         """One epoch of steps. Losses and predictions stay on the device;
         the host reads them once per logged window (every step for an
-        epoch under 10 batches) and at the epoch's end."""
+        epoch under 10 batches) and at the epoch's end. With ``trace_dir``,
+        epoch 0's steps run under the profiler."""
+        tk = self.config.trainer
+        with (profiling.trace(tk.trace_dir)
+              if tk.trace_dir and self.cur_epoch == 0
+              else contextlib.nullcontext()):
+            train_targets, pred_chunks, total_loss, epoch_time = \
+                self._run_steps()
+        self._end_train_epoch(train_targets, pred_chunks, total_loss,
+                              epoch_time)
+
+    def _run_steps(self):
+        """The epoch's steps -> (targets, device prediction chunks, summed
+        loss, epoch time)."""
         self.model.train()
         tiny = self.total_train_batch < 10
         total_loss = 0.0
@@ -516,6 +676,11 @@ class VQATrainer:
             pred_chunks.append(preds)
             self.global_step += 1
             batch_idx += 1
+            ck_every = self.config.trainer.checkpoint_every_steps
+            if ck_every and self.global_step - self._last_ckpt_step \
+                    >= ck_every:
+                # a resume runs the interrupted epoch again
+                self._save_pair(self.cur_epoch)
             if tiny:
                 total_loss += float(torch.stack(window).sum())
                 window.clear()
@@ -542,7 +707,10 @@ class VQATrainer:
         if window:
             total_loss += float(torch.stack(window).sum())
         epoch_time += time.time() - window_t0
+        return train_targets, pred_chunks, total_loss, epoch_time
 
+    def _end_train_epoch(self, train_targets, pred_chunks, total_loss,
+                         epoch_time):
         train_predictions = (torch.cat(pred_chunks).cpu().tolist()
                              if pred_chunks else [])
         self.total_training_time += epoch_time
@@ -608,6 +776,11 @@ class VQATrainer:
         avg_wups = (sum(wups_scores) / len(wups_scores)) if wups_scores else 0.0
         avg_valid_loss = total_valid_loss / max(1, total_valid_count)
 
+        rouge_overall = None
+        if self.config.trainer.compute_rouge and valid_predictions:
+            _, rouge_overall = compute_rouge_metric(
+                valid_predictions, valid_targets, self.answer_spaces)
+
         self.callbacks(self.model, avg_wups, self.cur_epoch,
                        self.answer_spaces)
 
@@ -615,6 +788,11 @@ class VQATrainer:
         self.logger.log_message(
             f"Epoch #{self.cur_epoch}: Average Validation Loss: "
             f"{avg_valid_loss:.4f} - Average WUPS Score: {avg_wups:.4f}")
+        if rouge_overall is not None:
+            self.logger.log_message(
+                "Validation ROUGE: " + " - ".join(
+                    f"{k} f={v['fmeasure']:.4f}"
+                    for k, v in rouge_overall.items()))
         self.logger.log_new_line()
 
         pred_dir = os.path.join(self.output_dir, "validation_predictions")
@@ -624,11 +802,15 @@ class VQATrainer:
                 f"{self.cur_epoch}_validation_predictions.json"), "w") as f:
             json.dump(predictions_dict_list, f)
 
-        self.tracker.log({
+        metrics = {
             "epoch": self.cur_epoch,
             "valid_avg_loss": avg_valid_loss,
             "valid_avg_wups": avg_wups,
-        })
+        }
+        if rouge_overall is not None:
+            metrics.update({f"valid_{k}_f": v["fmeasure"]
+                            for k, v in rouge_overall.items()})
+        self.tracker.log(metrics)
         self.last_valid_wups = avg_wups
         self.last_valid_loss = avg_valid_loss
 

@@ -61,10 +61,13 @@ def test_package_has_sources():
                 "utils/weights.py", "core/constants.py", "core/config.py",
                 "data/pipeline.py", "eval/wups.py", "train/trainer.py",
                 "train/optimizer.py", "train/__main__.py",
-                "train/feature_cache.py", "train/vit.py"):
+                "train/feature_cache.py", "train/vit.py",
+                "train/callbacks.py", "eval/rouge.py", "utils/profiling.py",
+                "native/loader.py"):
         assert rel in names
     for cu in ("attention.cu", "bottleneck.cu"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", cu))
+    assert os.path.exists(os.path.join(PKG_DIR, "native", "preproc.cpp"))
 
 
 @pytest.mark.parametrize("path", SOURCES,

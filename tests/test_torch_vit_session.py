@@ -70,8 +70,9 @@ def test_vit_collate_matches_jax(daquar, emit_uint8):
     answers, samples, _ = daquar
     want = JaxCollate(answers, eval_mode=True, emit_uint8=emit_uint8,
                       use_native=False)(samples)
-    got = DaquarVitCollate(answers, eval_mode=True,
-                           emit_uint8=emit_uint8)(samples)
+    # both on the cv2 path (the native path: test_torch_rouge_native.py)
+    got = DaquarVitCollate(answers, eval_mode=True, emit_uint8=emit_uint8,
+                           use_native=False)(samples)
     assert sorted(got) == sorted(want)
     assert "image_tensors" not in got
     for key in TEXT_KEYS + ("pixel_values",):
