@@ -10,7 +10,9 @@ Phases (each raises on failure; nothing is caught):
               ``_build/`` directory; require compute capability 9.0.
 2. kernels -- hold each hand-written kernel against its plain PyTorch
               version on the card, at the shapes the main path gives it
-              (and attention at the ViT geometry), in fp32 and bf16, and
+              (and attention at the ViT geometry, S=197, and the RoBERTa
+              geometry of the cross-attention family, S=213), in fp32 and
+              bf16, and
               time kernel, plain version and (for attention) PyTorch's
               ``scaled_dot_product_attention`` (for the bottleneck, the
               unfused modules) as device time from the profiler. Attention
@@ -22,8 +24,9 @@ Phases (each raises on failure; nothing is caught):
               from L2 per launch (``weight_stream_mb``, from the shapes).
               The attention kernel's backward (the VJP of the plain
               version) is held against autograd of the plain version on
-              head views, and timed (``bwd_ms``), at the SGA shapes and at
-              the ViT shape (``vit_bwd_ms``).
+              head views, and timed (``bwd_ms``), at the SGA shapes, the
+              ViT shape (``vit_bwd_ms``) and the RoBERTa shape
+              (``cross_bwd_ms``).
 3. serve   -- the port's main path at full width: ResNet-50 + T5-base
               (12 layers, d_model 768) + 3 SGA blocks (H=8, D=96), 170
               answers, bf16, random weights from a seeded generator, behind
@@ -58,7 +61,21 @@ Phases (each raises on failure; nothing is caught):
               the decoder and the forward; idle share) and of one greedy
               and one beam ``generate_batch`` of each (device time,
               launches, idle share).
-5. train   -- the CNN family's training path at the same width, B=64,
+5. serve_frcnn, serve_cross -- the Faster-RCNN family (ResNet-50 body +
+              FPN, whose 4x4 ``pool`` level gives 16 vision tokens, +
+              T5-base + 3 SGA blocks, 256^2 images) and the cross-attention
+              family (ViT-base x RoBERTa-base, 12 interleaved layers, 224^2
+              images, 197 + 16 tokens in the RoBERTa layers) at full width,
+              170 answers, bf16, seeded weights and images, behind
+              ``ask_batch`` over 192 requests: launches exact per forward
+              (Faster-RCNN: 6 attention at Sk=16 and 7 bottleneck; cross:
+              24 attention, 12 at S=213 and 12 at S=197), finite log-probs
+              whose rows sum to one and give the served top-k, kernels on
+              against off (bf16 over the three chunks, fp32 on one); then
+              ``ask_batch`` times with the kernels on and off in turns,
+              FAMILY_ROUNDS times each, and a profile of one forward of
+              each (device time, launches, idle share).
+6. train   -- the CNN family's training path at the same width, B=64,
               bf16 compute with fp32 master weights: one epoch (8 train and
               2 test batches) through ``VQATrainer`` with the reference
               config's optimizer, dropout and frozen-feature cache, checking
@@ -75,7 +92,7 @@ Phases (each raises on failure; nothing is caught):
               timed step) with the kernels on and off in turns, and a
               profile of each (device time and launches of the tower, the
               text tower, the forward and the step; idle share).
-6. train_vit -- the ViT family's training path at full width (ViT-base +
+7. train_vit -- the ViT family's training path at full width (ViT-base +
               T5-base encoder-decoder, 170 answers, B=64, bf16 compute with
               fp32 master weights, 224^2 seeded uint8 images): one epoch
               through ``VQATrainer`` with the reference config's optimizer,
@@ -90,7 +107,22 @@ Phases (each raises on failure; nothing is caught):
               step and their backward); then train-step timings of the
               cached, the cache-off and the fine-tuned variants in turns,
               and a profile of each.
-7. resume  -- kill and resume, for each family at full width (B=64, bf16
+8. train_frcnn, train_cross -- each family at the same width through
+              ``VQATrainer`` for one epoch with the reference config
+              (production dropout, B=64, bf16 compute with fp32 master
+              weights): Faster-RCNN with the cache on (21 bottleneck
+              launches build it from the FPN's pool level, 0 per step, 6
+              attention per eval forward); cross-attention with the cache
+              off and JAX's log line (24 attention launches per step and
+              per eval forward, and 12 attention VJPs per step: the RoBERTa
+              layers train, the frozen ViT's run without a gradient). Then
+              the cache on against off (Faster-RCNN), kernels on against
+              off at dropout 0 (Faster-RCNN with the cache off: 6 attention
+              and 7 bottleneck launches per step; cross: 24), and
+              train-step timings (Faster-RCNN cached and cache-off; cross
+              production), FAMILY_TRAIN_ROUNDS each, with a profile of
+              each.
+9. resume  -- kill and resume, for each family at full width (B=64, bf16
               compute; the CNN family with the cache off, so that its
               steps run the bottleneck kernel; the ViT family with the
               cache on, the production setting): a child process
@@ -113,13 +145,15 @@ Phases (each raises on failure; nothing is caught):
               time with and without a background pair save in flight (in
               turns). One CNN epoch with ``trace_dir`` set (2 steps, dropout
               0, the cache off) must write a trace naming both kernels.
-8. serve_from_checkpoint -- for each family: 2 train steps, ``best-model.pt``
+10. serve_from_checkpoint -- for each of the four families: 2 train
+              steps, ``best-model.pt``
               through the callbacks, then ``VQAInferenceSession.
               from_checkpoint`` (timed); ``ask_batch`` on 64 requests must
               give the trainer's eval-step log-probs on the same requests,
               collated as the session collates them, within 1e-3, the same
-              top-1 answers, and 6 attention and 7 bottleneck launches (CNN)
-              or 12 attention launches (ViT). The difference from the
+              top-1 answers, and 6 attention and 7 bottleneck launches (CNN
+              and Faster-RCNN), 12 attention launches (ViT) or 24
+              (cross-attention). The difference from the
               trainer's own validation batch, whose ViT question columns
               are trimmed to the longest question, is reported.
 
@@ -134,7 +168,11 @@ family's training epoch, the cache's build included,
 ``train_launches_per_step`` and ``vit_train_launches_per_step`` per step of
 each variant and for the cache's build, ``resume_launches`` per resumed
 step and per cache rebuild, ``serve_from_checkpoint_launches`` over the
-64 requests served from a checkpoint);
+64 requests served from a checkpoint; ``frcnn_launches`` and
+``cross_launches`` over each family's three served forwards,
+``frcnn_train_epoch_launches`` / ``cross_train_epoch_launches`` and
+``frcnn_train_launches_per_step`` / ``cross_train_launches_per_step``
+likewise, the latter with the attention VJPs of a production step);
 ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms`` and attention's
 ``bwd_ms`` are per forward (``bound_share`` is ``bound_ms / ms``):
 the bf16 times of the kernel phase summed over the shapes one
@@ -142,7 +180,9 @@ forward launches (attention: 5 at Sk=16 and 1 at Sk=64; bottleneck: the
 seven blocks of stages 0 and 1); ``max_abs_err`` is the largest of those
 cases. Attention's ``vit_ms``, ``vit_plain_ms``, ``vit_bound_ms`` and
 ``vit_library_ms`` are per launch at the ViT shape (B=64, H=12, S=197,
-D=64, bf16), and so are ``vit_bwd_ms`` and ``vit_plain_bwd_ms``. Bounds are the larger of bytes over 3.35 TB/s and FLOPs over
+D=64, bf16), and so are ``vit_bwd_ms`` and ``vit_plain_bwd_ms``; the
+``cross_*`` numbers likewise at the RoBERTa shape (B=64, H=12, S=213,
+D=64, bf16). Bounds are the larger of bytes over 3.35 TB/s and FLOPs over
 the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32), H100 SXM data sheet.
 """
 
@@ -169,10 +209,12 @@ DEVICE = "cuda"
 BATCH = 64
 CHUNKS = 3
 # timed rounds per configuration of the serving phases (20 and 10 before
-# the ViT family's training phase joined the run; lowered to keep the whole
-# run near 450 s)
-ROUNDS = 10            # ask_batch, CNN family
-VIT_ROUNDS = 6         # ask_batch and generate_batch, ViT family
+# the ViT family's training phase joined the run, 10 and 6 before the
+# Faster-RCNN and cross-attention phases did; lowered to keep the whole run
+# under 800 s)
+ROUNDS = 6             # ask_batch, CNN family
+VIT_ROUNDS = 4         # ask_batch and generate_batch, ViT family
+FAMILY_ROUNDS = 4      # ask_batch, Faster-RCNN and cross-attention families
 GEN_TOKENS = 5         # generate_batch: answer length and beams
 GEN_BEAMS = 3
 BEAM_SCORE_TOL = 1e-4  # fp32 beam scores, kernels on against off
@@ -181,13 +223,18 @@ ANSWERS = 170          # the DAQUAR answer-space size
 IMAGE = 256
 VIT_IMAGE = 224
 VIT_NAME = "google/vit-base-patch16-224-in21k"
+# the cross-attention family: RoBERTa over 197 image and 16 question tokens
+CROSS_SEQ = 197 + 16
 
 TRAIN_BATCHES = 8      # the train phase's epoch: 8 train and 2 test batches
 TEST_BATCHES = 2
 DISTINCT_IMAGES = 96   # per split; DAQUAR asks several questions per image
 BF16_STEPS = 5         # kernels on against off, dropout 0
 FP32_STEPS = 3
-TRAIN_ROUNDS = 20      # timed train steps per configuration, in turns
+# timed train steps per configuration, in turns (20 before the
+# Faster-RCNN and cross-attention phases joined the run)
+TRAIN_ROUNDS = 12
+FAMILY_TRAIN_ROUNDS = 6   # the same, Faster-RCNN and cross-attention
 # profiled train steps per configuration: the device's idle share and the
 # step's busy time and launches (10 before the ViT family's training phase
 # joined the run; the profiler's bookkeeping of a step's ~3000-6000 kernels
@@ -298,7 +345,10 @@ ATTENTION_CASES = [       # name, B, H, Sq, Sk, D, launches per forward
     ("sga_sk16", BATCH, 8, 16, 16, 96, 5),
     ("sga_sk64", BATCH, 8, 16, 64, 96, 1),
     ("vit_s197", BATCH, 12, 197, 197, 64, 0),
+    ("cross_s213", BATCH, 12, CROSS_SEQ, CROSS_SEQ, 64, 0),
 ]
+# the kernel phase's per-launch numbers kept for the kernels line, by case
+PER_LAUNCH_CASES = {"vit_s197": "vit", "cross_s213": "cross"}
 
 
 def phase_attention(torch):
@@ -352,8 +402,8 @@ def phase_attention(torch):
             line.update(attention_backward(torch, A, B, H, Sq, Sk, D,
                                            dtype, dtype_name, name))
             emit(line)
-            if dtype_name == "bfloat16" and name == "vit_s197":
-                per_forward["vit"] = {
+            if dtype_name == "bfloat16" and name in PER_LAUNCH_CASES:
+                per_forward[PER_LAUNCH_CASES[name]] = {
                     "ms": ms, "ms_head_views": views_ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": max(t_bytes, t_ops),
@@ -558,29 +608,7 @@ def phase_serve(torch, card):
     plain = serving(use_kernels=False, state=session.model.state_dict())
     batches = [session._to_device(session._collate_chunk(
         requests[c * BATCH:(c + 1) * BATCH])) for c in range(CHUNKS)]
-    bf16_diff = 0.0
-    for c, batch in enumerate(batches):
-        lp = session._predict(batch).cpu().numpy()
-        if lp.shape != (BATCH, ANSWERS) or not np.isfinite(lp).all():
-            raise AssertionError(f"log-probs of shape {lp.shape}, "
-                                 f"finite={np.isfinite(lp).all()}")
-        sums = np.exp(lp.astype(np.float64)).sum(-1)
-        if not np.abs(sums - 1.0).max() <= 1e-3:
-            raise AssertionError(f"probabilities sum to {sums.min()}.."
-                                 f"{sums.max()}")
-        served = np.array([r["top_probs"]
-                           for r in results[c * BATCH:(c + 1) * BATCH]])
-        top = np.exp(np.sort(lp, axis=-1)[:, ::-1][:, :3])
-        # the same inputs through the same model; 1e-4 leaves room for a
-        # library that sums in another order from one call to the next
-        if not np.abs(served - top).max() <= 1e-4:
-            raise AssertionError("served top-k probabilities differ from the "
-                                 "forward's log-probs")
-        off = plain._predict(batch).cpu().numpy()
-        bf16_diff = max(bf16_diff, float(np.abs(lp - off).max()))
-    if not bf16_diff <= LOGPROB_TOL["bfloat16"]:
-        raise AssertionError(f"bf16 kernels on/off log-probs differ by "
-                             f"{bf16_diff} > {LOGPROB_TOL['bfloat16']}")
+    bf16_diff = check_served(session, plain, batches, results, "CNN")
 
     # kernels on and off in turns (on, off, off, on, ...): serving is partly
     # bound by the host, whose speed drifts within a run
@@ -627,6 +655,37 @@ def phase_serve(torch, card):
           "logprob_diff_bf16": bf16_diff, "logprob_diff_fp32": fp32_diff,
           "sample_answer": results[0]})
     return launches
+
+
+def check_served(session, plain, batches, results, what):
+    """Each served chunk's bf16 log-probs: [BATCH, ANSWERS], finite, rows
+    summing to one within 1e-3, giving the served top-3 probabilities, and
+    within LOGPROB_TOL of the same weights with the kernels off (the
+    session ``plain``). Returns the largest on/off difference."""
+    bf16_diff = 0.0
+    for c, batch in enumerate(batches):
+        lp = session._predict(batch).cpu().numpy()
+        if lp.shape != (BATCH, ANSWERS) or not np.isfinite(lp).all():
+            raise AssertionError(f"{what} log-probs of shape {lp.shape}, "
+                                 f"finite={np.isfinite(lp).all()}")
+        sums = np.exp(lp.astype(np.float64)).sum(-1)
+        if not np.abs(sums - 1.0).max() <= 1e-3:
+            raise AssertionError(f"{what} probabilities sum to "
+                                 f"{sums.min()}..{sums.max()}")
+        served = np.array([r["top_probs"]
+                           for r in results[c * BATCH:(c + 1) * BATCH]])
+        top = np.exp(np.sort(lp, axis=-1)[:, ::-1][:, :3])
+        # the same inputs through the same model; 1e-4 leaves room for a
+        # library that sums in another order from one call to the next
+        if not np.abs(served - top).max() <= 1e-4:
+            raise AssertionError(f"{what} served top-k probabilities differ "
+                                 f"from the forward's log-probs")
+        off = plain._predict(batch).cpu().numpy()
+        bf16_diff = max(bf16_diff, float(np.abs(lp - off).max()))
+    if not bf16_diff <= LOGPROB_TOL["bfloat16"]:
+        raise AssertionError(f"{what} bf16 kernels on/off log-probs differ "
+                             f"by {bf16_diff} > {LOGPROB_TOL['bfloat16']}")
+    return bf16_diff
 
 
 def serve_ms(torch, session, requests):
@@ -762,27 +821,7 @@ def phase_serve_vit(torch, card):
     plain = serving(torch.bfloat16, False, state=session.model.state_dict())
     batches = [session._to_device(session._collate_chunk(
         requests[c * BATCH:(c + 1) * BATCH])) for c in range(CHUNKS)]
-    bf16_diff = 0.0
-    for c, batch in enumerate(batches):
-        lp = session._predict(batch).cpu().numpy()
-        if lp.shape != (BATCH, ANSWERS) or not np.isfinite(lp).all():
-            raise AssertionError(f"ViT log-probs of shape {lp.shape}, "
-                                 f"finite={np.isfinite(lp).all()}")
-        sums = np.exp(lp.astype(np.float64)).sum(-1)
-        if not np.abs(sums - 1.0).max() <= 1e-3:
-            raise AssertionError(f"ViT probabilities sum to {sums.min()}.."
-                                 f"{sums.max()}")
-        served = np.array([r["top_probs"]
-                           for r in results[c * BATCH:(c + 1) * BATCH]])
-        top = np.exp(np.sort(lp, axis=-1)[:, ::-1][:, :3])
-        if not np.abs(served - top).max() <= 1e-4:
-            raise AssertionError("ViT served top-k probabilities differ from "
-                                 "the forward's log-probs")
-        off = plain._predict(batch).cpu().numpy()
-        bf16_diff = max(bf16_diff, float(np.abs(lp - off).max()))
-    if not bf16_diff <= LOGPROB_TOL["bfloat16"]:
-        raise AssertionError(f"ViT bf16 kernels on/off log-probs differ by "
-                             f"{bf16_diff} > {LOGPROB_TOL['bfloat16']}")
+    bf16_diff = check_served(session, plain, batches, results, "ViT")
 
     # generation on one chunk; bf16 greedy agreement is reported, not gated
     chunk = requests[:BATCH]
@@ -923,6 +962,167 @@ def vit_parts(torch, model, batch):
     }
 
 
+def _build_frcnn_model(torch, dtype, use_kernels, dropout=True):
+    """ResNet-50 + FPN + T5-base + 3 SGA blocks at full width, weights from
+    a generator seeded with 0; ``dropout=False`` sets the T5 and SGA
+    dropout rates to 0."""
+    from t5_resnet_vqa_torch.models import FasterRcnnVQAModel, T5Config
+    from t5_resnet_vqa_torch.ops import AttentionConfig
+
+    rate = {} if dropout else {"dropout_rate": 0.0}
+    return FasterRcnnVQAModel(
+        ANSWERS, t5_config=T5Config(**rate), num_attention_blocks=3,
+        sga_config=AttentionConfig(**rate), use_kernels=use_kernels,
+        dtype=dtype, device=DEVICE, generator=torch.Generator().manual_seed(0))
+
+
+def _build_cross_model(torch, dtype, use_kernels, dropout=True):
+    """ViT-base x RoBERTa-base, 12 interleaved layers, weights from a
+    generator seeded with 0; ``dropout=False`` sets RoBERTa's hidden
+    dropout to 0 (its attention has none)."""
+    from t5_resnet_vqa_torch.models import (
+        CrossAttentionVitVQAModel,
+        RobertaConfig,
+    )
+
+    rate = {} if dropout else {"dropout_rate": 0.0}
+    return CrossAttentionVitVQAModel(
+        ANSWERS, roberta_config=RobertaConfig(**rate),
+        use_kernels=use_kernels, dtype=dtype, device=DEVICE,
+        generator=torch.Generator().manual_seed(0))
+
+
+# the two families of this phase group: the session's family, the model's
+# build function, image size, (attention, bottleneck) launches per forward, and
+# the vision model name (and language model) of the trainer's config
+FAMILIES = {
+    "frcnn": {"session": "cnn", "build": _build_frcnn_model, "size": IMAGE,
+              "launches": (6, 7), "vision": "faster-rcnn", "lang": "t5-base",
+              "model": "resnet50-fpn + t5-base + 3xSGA"},
+    "cross": {"session": "cross_attention", "build": _build_cross_model,
+              "size": VIT_IMAGE, "launches": (24, 0), "vision": VIT_NAME,
+              "lang": "roberta-base", "model": "vit-base x roberta-base"},
+}
+
+
+def family_parts(model, batch):
+    """``phase_breakdown``'s parts: the Faster-RCNN family's are the CNN
+    family's; the cross-attention family has no separable part."""
+    if hasattr(model, "compute_vision_features"):
+        return cnn_parts(model, batch)
+    return {"forward": lambda: model(**batch)}
+
+
+def phase_serve_family(torch, card, family):
+    """``ask_batch`` of the Faster-RCNN (``frcnn``) or cross-attention
+    (``cross``) family at full width (see the module docstring). Returns
+    the kernels' launches over the three served forwards."""
+    from t5_resnet_vqa_torch.eval import VQAInferenceSession
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+
+    spec = FAMILIES[family]
+    t_phase = time.perf_counter()
+    answers = [f"answer{i:03d}" for i in range(ANSWERS)]
+    rng = np.random.default_rng(3)
+    objects = ["table", "chair", "lamp", "sofa", "bottle", "book", "cup"]
+    requests = [(f"{family}_request_{i}.png",
+                 f"what is on the {objects[int(rng.integers(len(objects)))]}"
+                 f" number {i % BATCH}") for i in range(CHUNKS * BATCH)]
+    size = spec["size"]
+    images = {path: rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+              for path, _ in requests}
+
+    def load_images(paths):
+        return np.stack([images[p] for p in paths])
+
+    def serving(dtype, use_kernels, state=None):
+        model = spec["build"](torch, dtype, use_kernels)
+        session = VQAInferenceSession(model, state, answers, spec["session"],
+                                      batch_size=BATCH, device=DEVICE)
+        session.collate.load_images = load_images
+        return session
+
+    session = serving(torch.bfloat16, True)
+    session.ask_batch(requests[:BATCH])       # first call: allocator, cuDNN
+    torch.cuda.synchronize()
+
+    # the main path once: three chunks of requests, counts read right after
+    A.launches = 0
+    K.launches = 0
+    first_ms, results = serve_ms(torch, session, requests)
+    launches = {"attention": A.launches, "bottleneck": K.launches}
+    per_forward = dict(zip(("attention", "bottleneck"), spec["launches"]))
+    if launches != {k: n * CHUNKS for k, n in per_forward.items()}:
+        raise AssertionError(f"{family} launch counts {launches}, expected "
+                             f"{per_forward} per forward over {CHUNKS} "
+                             f"forwards")
+    if len(results) != len(requests) or \
+            not all(r["answer"] in answers for r in results):
+        raise AssertionError("answers missing or outside the answer space")
+
+    plain = serving(torch.bfloat16, False, state=session.model.state_dict())
+    batches = [session._to_device(session._collate_chunk(
+        requests[c * BATCH:(c + 1) * BATCH])) for c in range(CHUNKS)]
+    bf16_diff = check_served(session, plain, batches, results, family)
+
+    rounds = {"kernels_on": [], "kernels_off": []}
+    sessions = (("kernels_on", session), ("kernels_off", plain))
+    for r in range(FAMILY_ROUNDS):
+        for label, s in (sessions if r % 2 == 0 else sessions[::-1]):
+            rounds[label].append(serve_ms(torch, s, requests)[0])
+    breakdown = {label: phase_breakdown(torch, f"breakdown_{family}", label,
+                                        family_parts(s.model, batches[0]),
+                                        card)
+                 for label, s in sessions}
+
+    # fp32 (no TF32), kernels on against off, on one chunk
+    state = session.model.state_dict()
+    del session, plain
+    torch.cuda.empty_cache()
+    fp32 = {}
+    for flag in (True, False):
+        m = spec["build"](torch, torch.float32, flag)
+        m.load_state_dict(state, strict=True)
+        a0, k0 = A.launches, K.launches
+        with torch.inference_mode():
+            fp32[flag] = m.eval()(**batches[0])[0]
+        got = (A.launches - a0, K.launches - k0)
+        if got != (spec["launches"] if flag else (0, 0)):
+            raise AssertionError(f"{family} fp32 forward with use_kernels="
+                                 f"{flag} launched {got}")
+        del m
+        torch.cuda.empty_cache()
+    fp32_diff = float((fp32[True] - fp32[False]).abs().max())
+    if not fp32_diff <= LOGPROB_TOL["float32"]:
+        raise AssertionError(f"{family} fp32 kernels on/off log-probs differ "
+                             f"by {fp32_diff} > {LOGPROB_TOL['float32']}")
+
+    median = {label: float(np.median(ms)) for label, ms in rounds.items()}
+    pairs = len(requests)
+    emit({"phase": f"serve_{family}", "card": card, "model": spec["model"],
+          "answers": ANSWERS, "dtype": "bfloat16", "batch": BATCH,
+          "requests": pairs, "launches": launches,
+          "launches_per_forward": per_forward, "first_run_ms": first_ms,
+          "ask_batch_ms": median["kernels_on"],
+          "pairs_per_s": pairs / (median["kernels_on"] / 1e3),
+          "kernels_off_ask_batch_ms": median["kernels_off"],
+          "kernels_off_pairs_per_s": pairs / (median["kernels_off"] / 1e3),
+          "fastest_ask_batch_ms": {label: float(min(ms))
+                                   for label, ms in rounds.items()},
+          "rounds": FAMILY_ROUNDS, "rounds_ms": rounds,
+          "logprob_diff_bf16": bf16_diff, "logprob_diff_fp32": fp32_diff,
+          "device_busy_ms": {k: v["device_busy_ms"]
+                             for k, v in breakdown.items()},
+          "kernel_launches": {k: v["kernel_launches"]
+                              for k, v in breakdown.items()},
+          "device_idle_share": {k: v["device_idle_share"]
+                                for k, v in breakdown.items()},
+          "sample_answer": results[0],
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def profile_device(torch, fn, iters: int = 1) -> dict:
     """``iters`` back-to-back calls of ``fn`` under the profiler. Per call:
     ``busy_ms`` (the device time of the profiler's kernel rows),
@@ -1015,15 +1215,16 @@ def train_data(n_train, n_test, size=IMAGE):
             split("test", n_test * BATCH), load_images)
 
 
-def train_config(output_dir, vision="resnet50"):
+def train_config(output_dir, vision="resnet50", lang="t5-base"):
     """The reference config's optimizer, schedule, callbacks and
-    frozen-feature cache for the ``vision`` model at B=64, bf16 compute
-    with fp32 master weights; threshold -1 makes every epoch save the best
-    model."""
+    frozen-feature cache for the ``vision`` and ``lang`` models at B=64,
+    bf16 compute with fp32 master weights; threshold -1 makes every epoch
+    save the best model."""
     from t5_resnet_vqa_torch.core import Config
 
     cfg = Config.from_json(os.path.join(REPO, "vit_daquar_config.json"))
     cfg.model.vision_model_name = vision
+    cfg.model.language_model_name = lang
     cfg.model.compute_dtype = "bfloat16"
     dk, tk = cfg.dataset, cfg.trainer
     dk.train_batch_size = dk.test_batch_size = BATCH
@@ -1078,7 +1279,10 @@ def train_epoch(torch, cfg, build, data, expect, log_lines):
         trainer.train_step = counted("train", trainer.train_step)
         trainer.eval_step = counted("eval", trainer.eval_step)
         trainer.train()
-    epoch_s = time.perf_counter() - t0
+        epoch_s = time.perf_counter() - t0
+        # without the cache, the test batch loads its images
+        test_batch = _device_batch(to_device(
+            next(iter(trainer.test_dataloader)), torch.device(DEVICE)))
     launches = {"attention": A.launches, "bottleneck": K.launches}
     counts = {"cache_build": [cache_build],
               "train": [c[:2] for c in calls["train"]],
@@ -1112,8 +1316,6 @@ def train_epoch(torch, cfg, build, data, expect, log_lines):
                        map_location="cpu", weights_only=True)
     fresh = prepare_model(build(), torch.device(DEVICE), torch.bfloat16)
     fresh.load_state_dict(state, strict=True)
-    test_batch = _device_batch(to_device(
-        next(iter(trainer.test_dataloader)), torch.device(DEVICE)))
     with torch.inference_mode(), torch.autocast(DEVICE,
                                                 dtype=torch.bfloat16):
         got = fresh.eval()(**test_batch)[0]
@@ -1372,6 +1574,93 @@ def phase_train_vit(torch, card):
     return {"epoch": epoch["launches"], "per_step": per_step}
 
 
+def phase_train_family(torch, card, family):
+    """The Faster-RCNN (``frcnn``) or cross-attention (``cross``) family's
+    training path at full width (see the module docstring). Returns the
+    launch counts of the epoch and per step."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.train.trainer import _device_batch, prepare_model
+
+    spec = FAMILIES[family]
+    build = lambda flag=True, dropout=True: spec["build"](
+        torch, torch.float32, flag, dropout=dropout)
+    t_phase = time.perf_counter()
+    data = train_data(TRAIN_BATCHES, TEST_BATCHES, spec["size"])
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_train_{family}_")
+    try:
+        cfg = train_config(out_dir, spec["vision"], spec["lang"])
+        if family == "frcnn":     # the cache holds the FPN's pool level
+            expect = {"cache_build": (0, 7 * cache_chunks(data)),
+                      "train": (0, 0), "eval": (6, 0)}
+            log_lines = (f"Frozen-feature cache: {2 * DISTINCT_IMAGES} "
+                         f"images",)
+        else:                     # no cache; RoBERTa has no attention dropout
+            expect = {"cache_build": (0, 0), "train": (24, 0),
+                      "eval": (24, 0)}
+            log_lines = ("Frozen-feature cache: off (CrossAttentionVitVQA"
+                         "Model has no separable frozen tower)",)
+        v0 = A.vjps
+        reloaded, epoch = train_epoch(torch, cfg, build, data, expect,
+                                      log_lines)
+        epoch["attention_vjps"] = A.vjps - v0
+        want_vjps = 12 * TRAIN_BATCHES if family == "cross" else 0
+        if epoch["attention_vjps"] != want_vjps:
+            raise AssertionError(f"{family} epoch: {epoch['attention_vjps']}"
+                                 f" attention VJPs, expected {want_vjps}")
+        emit({"phase": f"train_{family}_epoch", "card": card,
+              "model": spec["model"], "answers": ANSWERS,
+              "dtype": "bfloat16 compute, fp32 master weights",
+              "dropout": "production", "batch": BATCH,
+              "train_steps": TRAIN_BATCHES, "eval_forwards": TEST_BATCHES,
+              **epoch})
+
+        raws = raw_batches(torch, cfg, data, spec["session"], BF16_STEPS)
+        batches = [_device_batch(r) for r in raws]
+        variants = {}
+        if family == "frcnn":
+            cache, cached = cache_parity(
+                torch, cfg, lambda: build(dropout=False), data, raws)
+            emit({"phase": f"train_{family}_cache", "card": card,
+                  "model": spec["model"], **cache})
+            variants["cached"] = (reloaded, cached[0])
+            variants["cache_off"] = (prepare_model(
+                build(), torch.device(DEVICE), torch.bfloat16).train(),
+                batches[0])
+        else:
+            variants["production"] = (reloaded, batches[0])
+        parity = train_parity(torch, cfg, batches,
+                              lambda flag: build(flag, dropout=False),
+                              spec["launches"])
+        emit({"phase": f"train_{family}_parity", "card": card,
+              "model": spec["model"], **parity})
+        timing = train_timing(torch, cfg, variants, card,
+                              f"train_{family}_timing", True,
+                              FAMILY_TRAIN_ROUNDS)
+        del variants, reloaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    per_step = {}
+    for name in ("attention", "bottleneck"):
+        per_step[name] = {
+            "cache_build": epoch["launches_cache_build"][name],
+            "production_step": epoch["launches_per_train_step"][name],
+            "eval_forward": epoch["launches_per_eval_forward"][name],
+            "dropout_0_cache_off": dict(zip(
+                ("attention", "bottleneck"),
+                parity["bfloat16"]["launches_per_step_on"]))[name],
+            **{label: timing[label]["launches_per_step"][name]
+               for label in timing}}
+    per_step["attention"]["vjps_per_production_step"] = \
+        epoch["attention_vjps"] // TRAIN_BATCHES
+    emit({"phase": f"train_{family}", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return {"epoch": epoch["launches"], "per_step": per_step}
+
+
 def _steps(torch, cfg, model, dtype, batches, total):
     """Run ``batches`` through the port's train step (the trainer's
     optimizer over ``total`` steps): losses and launches per step."""
@@ -1531,9 +1820,10 @@ def train_timing(torch, cfg, variants, card, phase, dropout,
             times[label].append(step_ms(torch, steps[label]))
     result = {}
     for label, (model, batch) in variants.items():
-        a0, k0 = A.launches, K.launches
+        a0, k0, v0 = A.launches, K.launches, A.vjps
         steps[label]()
-        counts = {"attention": A.launches - a0, "bottleneck": K.launches - k0}
+        counts = {"attention": A.launches - a0, "bottleneck": K.launches - k0,
+                  "attention_vjps": A.vjps - v0}
         median = float(np.median(times[label]))
         line = {"phase": phase, "config": label, "card": card,
                 "dropout": "production" if dropout else 0.0,
@@ -1565,11 +1855,12 @@ def train_breakdown(torch, model, batch, step):
     idle share over those steps (the profiler's host work included)."""
     autocast = lambda: torch.autocast(DEVICE, dtype=torch.bfloat16)
     images = batch.get("image_tensors", batch.get("pixel_values"))
-    # the ViT family's text encoder sits in its T5ForConditionalGeneration
+    # the ViT family's text encoder sits in its T5ForConditionalGeneration;
+    # the cross-attention family has neither a separable tower nor a T5
     encoder = (model.lang_model.encoder if hasattr(model, "decode_hidden")
-               else model.lang_model)
+               else getattr(model, "lang_model", None))
     parts = {}
-    if images is not None:
+    if images is not None and hasattr(model, "compute_vision_features"):
         def vision():
             with torch.no_grad(), autocast():
                 model.compute_vision_features(images)
@@ -1584,7 +1875,9 @@ def train_breakdown(torch, model, batch, step):
         with autocast():
             model(**batch)
 
-    parts.update({"text": text, "forward": forward})
+    if encoder is not None:
+        parts["text"] = text
+    parts["forward"] = forward
     device = {name: profile_device(torch, fn, iters=1)
               for name, fn in parts.items()}
     # the step's numbers are per step of the window (the profiler's
@@ -1620,13 +1913,26 @@ SERVE_CKPT_STEPS = 2
 # and requests: both run the same bf16 forward, so they should agree to the
 # bit; 1e-3 allows for another order of the same sums
 SERVED_TOL = 1e-3
+# per family: the (attention, bottleneck) launches of a served forward and
+# the model
+SERVED_LAUNCHES = {
+    "cnn": ((6, 7), "resnet50 + t5-base + 3xSGA"),
+    "vit": ((12, 0), "vit-base + t5-base enc-dec"),
+    **{f: (spec["launches"], spec["model"]) for f, spec in FAMILIES.items()},
+}
 
 
 def resume_setup(torch, family, out_dir):
     """(config, model builder, data) of the resume phase: the reference
     config at full width, B=64, bf16 compute; the CNN family with the cache
     off (the bottleneck kernel runs in every step), the ViT family with it
-    on (the production setting)."""
+    on (the production setting). Also the Faster-RCNN and cross-attention
+    families' (``FAMILIES``), which serve from a checkpoint."""
+    if family in FAMILIES:            # serving from a checkpoint only
+        spec = FAMILIES[family]
+        data = train_data(TRAIN_BATCHES, TEST_BATCHES, spec["size"])
+        cfg = train_config(out_dir, spec["vision"], spec["lang"])
+        return cfg, lambda: spec["build"](torch, torch.float32, True), data
     size = IMAGE if family == "cnn" else VIT_IMAGE
     data = train_data(TRAIN_BATCHES, TEST_BATCHES, size)
     if family == "cnn":
@@ -2047,8 +2353,8 @@ def serve_from_checkpoint_family(torch, card, family):
         trimmed_diff = float(np.abs(got - want_trimmed).max())
         trimmed_top1 = float((got.argmax(-1) == want_trimmed.argmax(-1))
                              .mean())
-        want_launches = ({"attention": 6, "bottleneck": 7} if family == "cnn"
-                         else {"attention": 12, "bottleneck": 0})
+        want_launches = dict(zip(("attention", "bottleneck"),
+                                 SERVED_LAUNCHES[family][0]))
         if launches != want_launches:
             raise AssertionError(f"served launches {launches}, expected "
                                  f"{want_launches}")
@@ -2059,9 +2365,7 @@ def serve_from_checkpoint_family(torch, card, family):
         del session
         torch.cuda.empty_cache()
         return {"phase": "serve_from_checkpoint", "family": family,
-                "card": card, "model": ("resnet50 + t5-base + 3xSGA"
-                                        if family == "cnn" else
-                                        "vit-base + t5-base enc-dec"),
+                "card": card, "model": SERVED_LAUNCHES[family][1],
                 "train_steps": SERVE_CKPT_STEPS, "requests": len(requests),
                 "dtype": "bfloat16 compute, fp32 weights",
                 "from_checkpoint_s": from_checkpoint_s,
@@ -2077,7 +2381,7 @@ def serve_from_checkpoint_family(torch, card, family):
 
 def phase_serve_from_checkpoint(torch, card):
     lines = {f: serve_from_checkpoint_family(torch, card, f)
-             for f in ("cnn", "vit")}
+             for f in SERVED_LAUNCHES}
     for line in lines.values():
         emit(line)
     return {name: {f: line["launches"][name] for f, line in lines.items()}
@@ -2107,8 +2411,11 @@ def main() -> int:
     blk = phase_bottleneck(torch)
     launches = phase_serve(torch, card)
     vit_launches = phase_serve_vit(torch, card)
+    family_launches = {f: phase_serve_family(torch, card, f)
+                       for f in FAMILIES}
     train = phase_train(torch, card)
     train_vit = phase_train_vit(torch, card)
+    family_train = {f: phase_train_family(torch, card, f) for f in FAMILIES}
     resumed = phase_resume(torch, card)
     served = phase_serve_from_checkpoint(torch, card)
 
@@ -2135,7 +2442,14 @@ def main() -> int:
                             train_vit["per_step"][name],
                         "resume_launches": resumed[name],
                         "serve_from_checkpoint_launches": served[name]})
-    vit = att["vit"]
+        for f in FAMILIES:
+            kernels[-1].update({
+                f"{f}_launches": family_launches[f][name],
+                f"{f}_train_epoch_launches": family_train[f]["epoch"][name],
+                f"{f}_train_launches_per_step":
+                    family_train[f]["per_step"][name]})
+    vit, cross = att["vit"], att["cross"]
+    kernels[0].update({f"cross_{k}": v for k, v in cross.items()})
     kernels[0].update({"bwd_ms": att["bwd_ms"],
                        "plain_bwd_ms": att["plain_bwd_ms"],
                        "bwd_max_abs_err": att["bwd_max_abs_err"],

@@ -1,9 +1,10 @@
-"""Batched VQA inference session for the CNN and ViT families (the serving
+"""Batched VQA inference session for the four families (the serving
 surface).
 
 PyTorch counterpart of ``VQAInferenceSession`` in the JAX package's
-``eval/session.py``: requests are collated exactly as in training (CNN:
-unnormalized 256^2 images with the configured interpolation; ViT: 224^2
+``eval/session.py``: requests are collated exactly as in training (the CNN
+family, ResNet or Faster-RCNN tower: unnormalized 256^2 images with the
+configured interpolation; the ViT and the cross-attention families: 224^2
 pixel values with mean = std = 0.5; uint8 on the wire, or float from the
 host, bilinear through the native resize, with ``uint8_wire=False``),
 padded up to a fixed batch, run under ``torch.inference_mode`` with the
@@ -37,13 +38,14 @@ from .predict import convert_logits_to_predictions_topk
 
 CNN_FAMILY = "cnn"
 VIT_FAMILY = "vit"
+CROSS_FAMILY = "cross_attention"
 
 # collate keys the forward does not take (the eval records, the dummy label)
 _HOST_KEYS = ("answers", "questions", "image_fns", "annotation_ids")
 
 
 class VQAInferenceSession:
-    """Ask (image path, question) pairs against a CNN- or ViT-family model.
+    """Ask (image path, question) pairs against a model of any family.
 
     ``state_dict``, when given, is loaded into ``model`` with
     ``strict=True``. The model is moved to ``device`` (default ``"cuda"``,
@@ -62,10 +64,10 @@ class VQAInferenceSession:
                  uint8_wire: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None):
-        if family not in (CNN_FAMILY, VIT_FAMILY):
+        if family not in (CNN_FAMILY, VIT_FAMILY, CROSS_FAMILY):
             raise NotImplementedError(
-                f"the port serves the {CNN_FAMILY!r} and {VIT_FAMILY!r} "
-                f"families only, not {family!r}")
+                f"the port serves the {CNN_FAMILY!r}, {VIT_FAMILY!r} and "
+                f"{CROSS_FAMILY!r} families, not {family!r}")
         self.device = resolve_device(device)
         self.family = family
         self.answer_spaces = list(answer_spaces)

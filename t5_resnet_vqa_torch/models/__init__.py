@@ -1,6 +1,10 @@
-"""Models: ResNet backbone, ViT tower, T5 encoder and decoder, the CNN- and
-ViT-family VQA models, and answer generation."""
+"""Models: ResNet backbone, FPN, ViT tower, T5 encoder and decoder, RoBERTa
+pieces, the VQA models of the four families (ResNet, Faster-RCNN, ViT + T5
+encoder-decoder, ViT x RoBERTa cross-attention), and answer generation."""
 
+from .cross_attention_vqa import CrossAttentionVitVQAModel
+from .faster_rcnn_vqa import FasterRcnnVQAModel
+from .fpn import FPN
 from .generation import beam_generate, greedy_generate
 from .image_input import finalize_image_input
 from .resnet import (
@@ -11,13 +15,16 @@ from .resnet import (
     resnet_out_channels,
 )
 from .resnet_vqa import ResnetVQAModel, init_weights
+from .roberta import RobertaConfig, RobertaEmbeddings, RobertaLayer
 from .t5 import T5Config, T5Decoder, T5Encoder, T5ForConditionalGeneration
 from .vit import ViTConfig, ViTModel
 from .vit_vqa import VitVQAModel
 
 __all__ = [
-    "BasicBlock", "Bottleneck", "FrozenBatchNorm", "ResNetBackbone",
-    "ResnetVQAModel", "T5Config", "T5Decoder", "T5Encoder",
+    "BasicBlock", "Bottleneck", "CrossAttentionVitVQAModel", "FPN",
+    "FasterRcnnVQAModel", "FrozenBatchNorm", "ResNetBackbone",
+    "ResnetVQAModel", "RobertaConfig", "RobertaEmbeddings", "RobertaLayer",
+    "T5Config", "T5Decoder", "T5Encoder",
     "T5ForConditionalGeneration", "ViTConfig", "ViTModel", "VitVQAModel",
     "beam_generate", "finalize_image_input", "greedy_generate",
     "init_weights", "resnet_out_channels",

@@ -10,7 +10,10 @@ TPU's matrix unit).
 Activations run in ``channels_last``: the model hands the backbone an NHWC
 batch viewed as NCHW, and the convolutions keep that layout, so
 ``x.permute(0, 2, 3, 1)`` gives the bottleneck kernel a contiguous NHWC
-tensor at no cost. With ``use_kernel``, the ResNet-50 blocks of
+tensor at no cost. ``body_only=True`` gives the Faster-RCNN tower's body
+(torchvision's ``IntermediateLayerGetter`` over a ``FrozenBatchNorm2d``
+ResNet-50): no ``fc`` and no ``num_batches_tracked``.
+With ``use_kernel``, the ResNet-50 blocks of
 ``FUSED_STAGES`` go through ``ops.bottleneck.fused_bottleneck_packed`` (the
 counterpart of ``fused_backbone_apply``, resnet.py:174, at its default
 ``fuse_stages``), everything else through the modules. The kernel has no
@@ -173,7 +176,8 @@ class Bottleneck(nn.Module):
 class ResNetBackbone(nn.Module):
     """Stem + 4 stages; returns [C2, C3, C4, C5] (NCHW, channels_last)."""
 
-    def __init__(self, variant: str = "resnet50", use_kernel: bool = False):
+    def __init__(self, variant: str = "resnet50", use_kernel: bool = False,
+                 body_only: bool = False):
         super().__init__()
         block_type, depths, widths, expansion = _VARIANTS[variant]
         block_cls = BasicBlock if block_type == "basic" else Bottleneck
@@ -192,7 +196,12 @@ class ResNetBackbone(nn.Module):
                       for b in range(depth)]
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             in_ch = out_ch
-        self.fc = nn.Linear(in_ch, 1000)     # unused; kept for strict loading
+        if not body_only:
+            self.fc = nn.Linear(in_ch, 1000)  # unused; kept for strict loading
+        else:               # a None buffer is left out of the state_dict
+            for m in self.modules():
+                if isinstance(m, FrozenBatchNorm):
+                    m.num_batches_tracked = None
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         h = self.maxpool(torch.relu(self.bn1(self.conv1(x))))

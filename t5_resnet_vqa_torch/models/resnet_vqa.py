@@ -52,9 +52,10 @@ from .t5 import T5Config, T5Encoder
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``, in module order: linears N(0, 0.02),
-    convolutions fan-in normal, embeddings N(0, 1), and frozen BatchNorms
-    with non-trivial statistics so that the BN fold is exercised. The
-    bottlenecks' fused operands are folded again from the new weights."""
+    convolutions fan-in normal (biases 0), embeddings N(0, 1), and frozen
+    BatchNorms with non-trivial statistics so that the BN fold is
+    exercised. The bottlenecks' fused operands are folded again from the
+    new weights."""
     g = generator
     with torch.no_grad():
         for m in model.modules():
@@ -69,6 +70,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, nn.Conv2d):
                 m.weight.normal_(0.0, (2.0 / m.weight[0].numel()) ** 0.5,
                                  generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 1.0, generator=g)
             elif isinstance(m, FrozenBatchNorm):

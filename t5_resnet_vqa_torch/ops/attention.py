@@ -18,7 +18,8 @@ returns the [B, H, Sq, D] view of it, so merging the heads back is a free
 reshape.
 
 ``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+went through the kernel; ``vjps`` counts the backward passes of launched
+kernels (each the plain version's VJP: no kernel is launched there).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from . import kernel_build
 
 launches = 0
+vjps = 0
 
 _MAX_SK = 256
 _MAX_D = 128
@@ -128,6 +130,8 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        global vjps
+        vjps += 1
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))

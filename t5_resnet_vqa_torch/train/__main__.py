@@ -8,7 +8,9 @@ Loads the six-group JSON config with dotted ``--set`` overrides, reads the
 answer space, builds the CNN-family model named by
 ``model_kwargs.vision_model_name`` (a ViT name in the shared reference file
 means resnet50 here, as in the JAX entry point), and trains. It runs on
-the card unless ``--set trainer_kwargs.device=cpu`` names the CPU.
+the card unless ``--set trainer_kwargs.device=cpu`` names the CPU. The
+Faster-RCNN tower (ResNet-50 + FPN) is
+``--set model_kwargs.vision_model_name=faster-rcnn``.
 
 To resume a killed run, run the same command with
 ``--set trainer_kwargs.load_from_checkpoint=true``: the trainer takes the
@@ -17,7 +19,8 @@ last ``checkpoint-model.pt`` + ``state_dict_checkpoint.pt`` pair under
 and step; the interrupted epoch runs again), or ``best-model.pt`` weights
 alone where no pair exists. ``trainer_kwargs.checkpoint_every_steps=N``
 also writes the pair every N steps. The
-ViT family has its own entry point, ``python -m t5_resnet_vqa_torch.train.vit``.
+ViT families have their own entry point,
+``python -m t5_resnet_vqa_torch.train.vit``.
 """
 
 import argparse

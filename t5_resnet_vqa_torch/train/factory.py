@@ -1,8 +1,9 @@
 """Model factory: config -> model instance and collate family.
 
-PyTorch counterpart of the JAX package's ``train/factory.py``. The port has
-the CNN family's ResNet towers and the ViT + T5 encoder-decoder family; the
-other families raise ``NotImplementedError`` naming their ROADMAP item.
+PyTorch counterpart of the JAX package's ``train/factory.py``: the CNN
+family (resnet18/34/50 and faster-rcnn towers), the ViT + T5
+encoder-decoder family, and the ViT x RoBERTa cross-attention family
+(``language_model_name="roberta-base"`` with a ViT vision model).
 
 The model is built in fp32 whatever ``compute_dtype`` says: the trainer
 keeps fp32 master weights and computes in bf16 under autocast. The
@@ -19,17 +20,18 @@ from torch import nn
 
 from ..core.config import ModelConfig
 from ..core.device import DeviceLike
-from ..models import ResnetVQAModel, T5Config, VitVQAModel
+from ..models import (
+    CrossAttentionVitVQAModel,
+    FasterRcnnVQAModel,
+    ResnetVQAModel,
+    T5Config,
+    VitVQAModel,
+)
 from ..ops import AttentionConfig
 
 CNN_FAMILY = "cnn"
 VIT_FAMILY = "vit"
 CROSS_FAMILY = "cross_attention"
-
-_NOT_PORTED = {
-    "faster-rcnn": "the Faster-RCNN family (ROADMAP.md, modules item 4)",
-    CROSS_FAMILY: "the CrossAttention family (ROADMAP.md, modules item 5)",
-}
 
 
 def model_family(model_cfg: ModelConfig) -> str:
@@ -49,22 +51,23 @@ def build_model(model_cfg: ModelConfig, num_answers: int,
     ``generator`` (default: seeded with 0)."""
     family = model_family(model_cfg)
     name = model_cfg.vision_model_name
-    missing = _NOT_PORTED.get(name if name == "faster-rcnn" else family)
-    if missing is not None:
-        raise NotImplementedError(f"{name!r} needs {missing}, which the "
-                                  f"port does not have yet")
+    common = dict(temperature_scaler=model_cfg.temperature_scaler,
+                  fine_tune_vision=model_cfg.fine_tune_vision,
+                  use_kernels=True, device=device, generator=generator)
     if family == VIT_FAMILY:
-        model = VitVQAModel(
-            num_answers, temperature_scaler=model_cfg.temperature_scaler,
+        model = VitVQAModel(num_answers, t5_config=T5Config.t5_base(),
+                            **common)
+    elif family == CROSS_FAMILY:
+        model = CrossAttentionVitVQAModel(num_answers, **common)
+    elif name == "faster-rcnn":
+        model = FasterRcnnVQAModel(
+            num_answers, t5_config=T5Config.t5_base(),
+            num_attention_blocks=model_cfg.num_attention_blocks,
+            sga_config=AttentionConfig(), fpn_channels=256, **common)
+    else:
+        model = ResnetVQAModel(
+            num_answers, vision_model_name=name,
             t5_config=T5Config.t5_base(),
-            fine_tune_vision=model_cfg.fine_tune_vision, use_kernels=True,
-            device=device, generator=generator)
-        return model, family
-    model = ResnetVQAModel(
-        num_answers, temperature_scaler=model_cfg.temperature_scaler,
-        vision_model_name=name, t5_config=T5Config.t5_base(),
-        num_attention_blocks=model_cfg.num_attention_blocks,
-        sga_config=AttentionConfig(),
-        fine_tune_vision=model_cfg.fine_tune_vision, use_kernels=True,
-        device=device, generator=generator)
+            num_attention_blocks=model_cfg.num_attention_blocks,
+            sga_config=AttentionConfig(), **common)
     return model, family

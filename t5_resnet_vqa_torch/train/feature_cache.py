@@ -14,7 +14,8 @@ module
     shape;
   * keeps the result as one tensor ``[n_images, *feat]`` on the model's
     device, in the dtype the tower computes in (ResNet-50's C5 map:
-    ~256 KB per image in bf16; the ViT's pooled CLS: 1.5 KB);
+    ~256 KB per image in bf16; the Faster-RCNN tower's FPN ``pool`` level,
+    [4, 4, 256]: 8 KB; the ViT's pooled CLS: 1.5 KB);
   * maps dataset rows to cache slots through the ``_indices`` metadata the
     ``DataLoader`` emits, and gathers ``vision_features`` with
     ``torch.index_select`` on the device, per batch.

@@ -17,7 +17,14 @@ the JAX param tree by its top-level module. That module is the name's
 first component, except under the prefixes of ``JAX_TOP_LEVEL``: the ViT
 family's ``lang_model`` (HF ``T5ForConditionalGeneration``) holds what the
 JAX model keeps as three top-level modules, ``shared``, ``lang_encoder``
-and ``lang_decoder``. Frozen modules are left out of the
+and ``lang_decoder``; the Faster-RCNN tower's ``vision_model.fpn`` is JAX's
+``fpn``. And the cross-attention family's layer lists
+(``JAX_LAYER_LISTS``): layer ``i`` of ``roberta_encoder_layers`` is JAX's
+``roberta_layer_{i}``, and of ``vit_encoder_layers`` its ``vit_layer_{i}``.
+Neither name is in ``DEFAULT_GROUP_MAP``, so both train at ``default_lr``
+(the frozen set is ``vit_embeddings`` and the ``vit_layer_{i}``, so a
+fine-tuned ViT layer trains at ``default_lr`` too, its embedding at
+``vision_lr``). Frozen modules are left out of the
 optimizer entirely, and so are the parameters no forward uses (the unused
 projection twin, the backbone's ``fc``): they never change.
 """
@@ -56,6 +63,13 @@ JAX_TOP_LEVEL: Dict[str, str] = {
     "lang_model.shared": "shared",
     "lang_model.encoder": "lang_encoder",
     "lang_model.decoder": "lang_decoder",
+    "vision_model.fpn": "fpn",
+}
+
+# port layer list -> the prefix of the JAX top-level module of its item i
+JAX_LAYER_LISTS: Dict[str, str] = {
+    "roberta_encoder_layers": "roberta_layer_",
+    "vit_encoder_layers": "vit_layer_",
 }
 
 GROUPS = ("vision", "lm_encoder", "lm_decoder", "fusion", "classifier",
@@ -115,7 +129,10 @@ def jax_top_level(name: str) -> str:
     for prefix, top in JAX_TOP_LEVEL.items():
         if name.startswith(prefix + "."):
             return top
-    return name.split(".")[0]
+    parts = name.split(".")
+    if parts[0] in JAX_LAYER_LISTS:
+        return JAX_LAYER_LISTS[parts[0]] + parts[1]
+    return parts[0]
 
 
 def label_params(model: nn.Module,

@@ -1,4 +1,5 @@
-"""The VQA trainer for the CNN and the ViT families.
+"""The VQA trainer for the four families (CNN with a ResNet or a
+Faster-RCNN tower, ViT + T5 encoder-decoder, ViT x RoBERTa cross-attention).
 
 PyTorch counterpart of ``VQATrainer`` and ``make_train_step`` of the JAX
 package's ``train/trainer.py``, with its log lines and artifacts:
@@ -36,15 +37,19 @@ master weights and is held in bf16 (``prepare_model``), so the fused
 bottleneck stages get bf16 activations and operands. A fine-tuned tower
 keeps fp32 master weights like the rest.
 
-The family decides only the collate (``DaquarCnnCollate`` or
-``DaquarVitCollate``) and, for the ViT family, the adaptive token lengths
+The family decides only the collate (``DaquarCnnCollate`` for the CNN
+family, ``DaquarVitCollate`` for the other two) and, for the ViT family,
+the adaptive token lengths
 (``dataset_kwargs.adaptive_question_len``): the question and decoder
 lengths shrink to the longest tokenized question of the two datasets, which
 changes no number (trailing pad columns are masked everywhere in that
 family). The steps are family-blind. With ``cache_frozen_features`` (the
 reference config's setting) a frozen tower runs once per unique image
 before the first epoch (``train/feature_cache.py``), and the steps take the
-gathered ``vision_features`` in place of the images.
+gathered ``vision_features`` in place of the images (the Faster-RCNN
+tower's ``pool`` level, the ResNet's C5 map, the ViT's pooled CLS); the
+cross-attention family has no separable tower, and the cache stays off with
+JAX's log line.
 
 Knobs of the JAX trainer that change nothing in the numbers are named in
 one startup log line and otherwise ignored; knobs that would change what
@@ -186,7 +191,7 @@ def build_collates(dk: DatasetConfig, answer_spaces: List[str], seed: int,
     kw = dict(lang_model=dk.language_model_tokenizer, seed=seed,
               tokenizer=tokenizer, use_native=dk.use_native_preprocessor,
               emit_uint8=dk.uint8_wire_images)
-    if family == VIT_FAMILY:
+    if family != CNN_FAMILY:
         return (DaquarVitCollate(answer_spaces, **kw),
                 DaquarVitCollate(answer_spaces, eval_mode=True, **kw))
     kw["resizing_dimensions"] = (dk.image_size, dk.image_size)
@@ -211,7 +216,7 @@ def _refuse_unported(config: Config) -> None:
 
 
 class VQATrainer:
-    """Trains a CNN- or ViT-family model on DAQUAR (see the module
+    """Trains a model of any of the four families on DAQUAR (see the module
     docstring)."""
 
     def __init__(self, model: nn.Module, config: Config,
@@ -220,11 +225,6 @@ class VQATrainer:
         _refuse_unported(config)
         self.config = config
         self.family = model_family(config.model)
-        if self.family not in (CNN_FAMILY, VIT_FAMILY):
-            raise NotImplementedError(
-                f"the port trains the {CNN_FAMILY!r} and {VIT_FAMILY!r} "
-                f"families, not {self.family!r} (ROADMAP.md, modules "
-                f"item 5)")
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
 
         tk = config.trainer

@@ -6,7 +6,9 @@ repo-root ``train_vit_vqa.py``):
 
 The CNN entry point's arguments and config (``train/__main__.py``), with the
 vision model set to ``google/vit-base-patch16-224-in21k`` whatever the
-config names: ViT-base + T5-base encoder-decoder. It runs on the card unless
+config names: ViT-base + T5-base encoder-decoder, or, with
+``--set model_kwargs.language_model_name=roberta-base``, the ViT-base x
+RoBERTa-base cross-attention family. It runs on the card unless
 ``--set trainer_kwargs.device=cpu`` names the CPU.
 """
 

@@ -2,9 +2,11 @@
 port's ``state_dict``, which is the reference's own layout.
 
 A copy of the numpy-only exporters of
-``t5_resnet_vqa_tpu/utils/torch_export.py`` that
-``export_resnet_vqa_checkpoint`` and ``export_vit_vqa_checkpoint`` need; the
-port keeps its own copy so that it never imports the JAX package.
+``t5_resnet_vqa_tpu/utils/torch_export.py`` that the four family exporters
+(``export_resnet_vqa_checkpoint``, ``export_faster_rcnn_vqa_checkpoint``,
+``export_vit_vqa_checkpoint``, ``export_cross_attention_vqa_checkpoint``)
+need; the port keeps its own copy so that it never imports the JAX
+package.
 Conventions:
 
   * flax Dense kernel [in, out]  -> Linear weight [out, in]
@@ -60,14 +62,17 @@ def export_conv_as_conv_transpose2d(out, tree, prefix: str) -> None:
         _put(out, prefix, "bias", _t(tree["bias"]))
 
 
-def export_frozen_batchnorm(out, tree, prefix: str, eps: float = 1e-5) -> None:
+def export_frozen_batchnorm(out, tree, prefix: str, eps: float = 1e-5,
+                            tracked: bool = True) -> None:
     scale = np.asarray(tree["scale"])
     _put(out, prefix, "weight", _t(scale))
     _put(out, prefix, "bias", _t(tree["bias"]))
     _put(out, prefix, "running_mean", torch.zeros(scale.shape[0]))
     _put(out, prefix, "running_var",
          torch.full((scale.shape[0],), 1.0 - eps))
-    _put(out, prefix, "num_batches_tracked", torch.zeros((), dtype=torch.int64))
+    if tracked:       # FrozenBatchNorm2d state dicts carry no tracker
+        _put(out, prefix, "num_batches_tracked",
+             torch.zeros((), dtype=torch.int64))
 
 
 def export_embedding(out, tree, prefix: str) -> None:
@@ -110,11 +115,11 @@ _RESNET_BOTTLENECK = {"resnet18": False, "resnet34": False, "resnet50": True}
 _RESNET_FEATURES = {"resnet18": 512, "resnet34": 512, "resnet50": 2048}
 
 
-def export_resnet_torchvision(out, tree, variant: str,
-                              prefix: str = "") -> None:
+def export_resnet_torchvision(out, tree, variant: str, prefix: str = "",
+                              tracked: bool = True) -> None:
     p = f"{prefix}." if prefix else ""
     export_conv2d(out, tree["conv1"], f"{p}conv1")
-    export_frozen_batchnorm(out, tree["bn1"], f"{p}bn1")
+    export_frozen_batchnorm(out, tree["bn1"], f"{p}bn1", tracked=tracked)
     n_convs = 3 if _RESNET_BOTTLENECK[variant] else 2
     for s, depth in enumerate(_RESNET_DEPTHS[variant], start=1):
         for b in range(depth):
@@ -122,12 +127,14 @@ def export_resnet_torchvision(out, tree, variant: str,
             bp = f"{p}layer{s}.{b}"
             for c in range(1, n_convs + 1):
                 export_conv2d(out, blk[f"conv{c}"], f"{bp}.conv{c}")
-                export_frozen_batchnorm(out, blk[f"bn{c}"], f"{bp}.bn{c}")
+                export_frozen_batchnorm(out, blk[f"bn{c}"], f"{bp}.bn{c}",
+                                        tracked=tracked)
             if "downsample_conv" in blk:
                 export_conv2d(out, blk["downsample_conv"],
                               f"{bp}.downsample.0")
                 export_frozen_batchnorm(out, blk["downsample_bn"],
-                                        f"{bp}.downsample.1")
+                                        f"{bp}.downsample.1",
+                                        tracked=tracked)
 
 
 def _export_t5_attention(out, tree, prefix: str) -> None:
@@ -209,6 +216,37 @@ def export_vit(out, tree, num_layers: int, prefix: str = "") -> None:
         export_vit_layer(out, tree[f"layer_{i}"], f"{p}encoder.layer.{i}")
 
 
+def export_roberta_embeddings(out, tree,
+                              prefix: str = "embeddings") -> None:
+    export_embedding(out, tree["word_embeddings"],
+                     f"{prefix}.word_embeddings")
+    export_embedding(out, tree["position_embeddings"],
+                     f"{prefix}.position_embeddings")
+    export_embedding(out, tree["token_type_embeddings"],
+                     f"{prefix}.token_type_embeddings")
+    export_layernorm(out, tree["LayerNorm"], f"{prefix}.LayerNorm")
+
+
+def export_roberta_layer(out, tree, prefix: str) -> None:
+    export_linear(out, tree["query"], f"{prefix}.attention.self.query")
+    export_linear(out, tree["key"], f"{prefix}.attention.self.key")
+    export_linear(out, tree["value"], f"{prefix}.attention.self.value")
+    export_linear(out, tree["attention_output"],
+                  f"{prefix}.attention.output.dense")
+    export_layernorm(out, tree["attention_LayerNorm"],
+                     f"{prefix}.attention.output.LayerNorm")
+    export_linear(out, tree["intermediate"], f"{prefix}.intermediate.dense")
+    export_linear(out, tree["output"], f"{prefix}.output.dense")
+    export_layernorm(out, tree["output_LayerNorm"],
+                     f"{prefix}.output.LayerNorm")
+
+
+def export_fpn(out, tree, prefix: str = "fpn", num_levels: int = 4) -> None:
+    for i in range(num_levels):
+        export_conv2d(out, tree[f"inner_{i}"], f"{prefix}.inner_blocks.{i}")
+        export_conv2d(out, tree[f"layer_{i}"], f"{prefix}.layer_blocks.{i}")
+
+
 def state_dict_from_jax(params: Mapping[str, Any], variant: str,
                         num_attention_blocks: int = 3,
                         num_t5_layers: int = 12) -> Dict[str, torch.Tensor]:
@@ -255,4 +293,47 @@ def vit_state_dict_from_jax(params: Mapping[str, Any],
         out[f"lang_model.{key}.weight"] = shared
     export_linear(out, params["fusing_layer"], "fusing_layer.0")
     export_linear(out, params["classification_layer"], "classification_layer")
+    return out
+
+
+def faster_rcnn_state_dict_from_jax(params: Mapping[str, Any],
+                                    num_attention_blocks: int = 3,
+                                    num_t5_layers: int = 12
+                                    ) -> Dict[str, torch.Tensor]:
+    """FasterRcnnVQAModel params (JAX layout) -> the port's ``state_dict``:
+    the counterpart of ``export_faster_rcnn_vqa_checkpoint`` (the body
+    without trackers or ``fc``, then the FPN, under ``vision_model``)."""
+    out: Dict[str, Any] = {}
+    export_resnet_torchvision(out, params["vision_model"], "resnet50",
+                              "vision_model.body", tracked=False)
+    export_fpn(out, params["fpn"], prefix="vision_model.fpn")
+    export_conv_as_conv_transpose2d(out, params["upscale_layer"]["conv"],
+                                    "upscale_layer")
+    export_t5_encoder(out, params["lang_model"], num_t5_layers,
+                      prefix="lang_model",
+                      shared_key="lang_model.embed_tokens.weight")
+    export_sga_stack(out, params["sga_modules"], num_attention_blocks)
+    export_attention_pooler(out, params["attention_pooler"])
+    export_linear(out, params["classification_layer"], "classification_layer")
+    return out
+
+
+def cross_attention_state_dict_from_jax(params: Mapping[str, Any],
+                                        num_layers: int = 12
+                                        ) -> Dict[str, torch.Tensor]:
+    """CrossAttentionVitVQAModel params (JAX layout) -> the port's
+    ``state_dict``: the counterpart of
+    ``export_cross_attention_vqa_checkpoint``."""
+    out: Dict[str, Any] = {}
+    export_roberta_embeddings(out, params["roberta_embeddings"],
+                              "roberta_embeddings")
+    export_vit_embeddings(out, params["vit_embeddings"], "vit_embeddings")
+    export_layernorm(out, params["layer_norm"], "layer_norm")
+    export_attention_pooler(out, params["attention_pooler"])
+    export_linear(out, params["classification_layer"], "classification_layer")
+    for i in range(num_layers):
+        export_roberta_layer(out, params[f"roberta_layer_{i}"],
+                             f"roberta_encoder_layers.{i}")
+        export_vit_layer(out, params[f"vit_layer_{i}"],
+                         f"vit_encoder_layers.{i}")
     return out

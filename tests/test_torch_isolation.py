@@ -21,7 +21,10 @@ import t5_resnet_vqa_torch
 from t5_resnet_vqa_torch.core import resolve_device
 from t5_resnet_vqa_torch.eval import VQAInferenceSession
 from t5_resnet_vqa_torch.models import (
+    CrossAttentionVitVQAModel,
+    FasterRcnnVQAModel,
     ResnetVQAModel,
+    RobertaConfig,
     T5Config,
     ViTConfig,
     VitVQAModel,
@@ -63,7 +66,9 @@ def test_package_has_sources():
                 "train/optimizer.py", "train/__main__.py",
                 "train/feature_cache.py", "train/vit.py",
                 "train/callbacks.py", "eval/rouge.py", "utils/profiling.py",
-                "native/loader.py"):
+                "native/loader.py", "models/fpn.py",
+                "models/faster_rcnn_vqa.py", "models/roberta.py",
+                "models/cross_attention_vqa.py"):
         assert rel in names
     for cu in ("attention.cu", "bottleneck.cu"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", cu))
@@ -184,4 +189,38 @@ def test_vit_model_and_session_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VQAInferenceSession(model, None, answers, "vit")
     session = VQAInferenceSession(model, None, answers, "vit", device="cpu")
+    assert session.device.type == "cpu"
+
+
+def _tiny_frcnn_model(**kw):
+    return FasterRcnnVQAModel(
+        5, t5_config=T5Config(vocab_size=64, d_model=16, d_kv=4, d_ff=32,
+                              num_layers=1, num_heads=4),
+        num_attention_blocks=1,
+        sga_config=AttentionConfig(hidden_size=16, num_heads=4, ff_size=16),
+        fpn_channels=8, **kw)
+
+
+def _tiny_cross_model(**kw):
+    return CrossAttentionVitVQAModel(5, vit_config=ViTConfig.tiny(),
+                                     roberta_config=RobertaConfig.tiny(),
+                                     **kw)
+
+
+@pytest.mark.parametrize("build,family", [(_tiny_frcnn_model, "cnn"),
+                                          (_tiny_cross_model,
+                                           "cross_attention")],
+                         ids=["faster_rcnn", "cross_attention"])
+def test_new_family_models_and_sessions_raise_without_cuda(no_cuda, build,
+                                                           family):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(device=None)
+    model = build(device="cpu")
+    assert model.classification_layer.weight.is_cpu
+    answers = ["a", "b", "c", "d", "e"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VQAInferenceSession(model, None, answers, family)
+    session = VQAInferenceSession(model, None, answers, family, device="cpu")
     assert session.device.type == "cpu"

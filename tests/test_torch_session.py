@@ -147,7 +147,9 @@ def test_session_model_is_in_eval_mode(sessions):
 
 
 def test_session_refuses_other_families(sessions):
+    # every family of the JAX package is served (cross_attention too:
+    # tests/test_torch_family_trainer.py); a name that is none raises
     _, port_session, answers, _ = sessions
     with pytest.raises(NotImplementedError, match="cnn"):
         VQAInferenceSession(port_session.model, None, answers,
-                            "cross_attention", device="cpu")
+                            "detr", device="cpu")
