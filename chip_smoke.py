@@ -156,6 +156,42 @@ Phases (each raises on failure; nothing is caught):
               (cross-attention). The difference from the
               trainer's own validation batch, whose ViT question columns
               are trimmed to the longest question, is reported.
+11. heatmaps -- the heatmap device step (``viz.heatmap_step``) on one test
+              batch of 64 of the CNN and Faster-RCNN sessions of phase 10
+              (``cam``: 6 attention + 7 bottleneck launches per forward, the
+              Faster-RCNN tower's ``pool`` level alone) and of the ViT one
+              (``rollout``: 0 + 0, the tower's plain attention with its
+              maps): the top 3 equal ``ask_batch``'s on the same requests
+              (the ViT tower on the same plain path), and so do the routing
+              by WUPS and the average WUPS; CAMs kernels on against off
+              (log-probs within 5e-2; the channel mean within 2e-2 of the
+              features' magnitude); the device's rollout mask against
+              ``rollout_mask`` on host copies of the same fp32 maps (1e-5);
+              device ms and the bytes copied to the host per batch. The
+              host step (overlays and PNGs) needs cv2, which the card's
+              machine lacks; the CPU tests cover it.
+12. http    -- ``VQAHTTPServer`` on an ephemeral port over the CNN and ViT
+              sessions of phase 10: /healthz, 64 /v1/ask, one
+              /v1/ask_batch of 64, /v1/generate (greedy and 3 beams; a 400
+              for the CNN family) and a bad body (400), answers against
+              the direct session calls (top-1 equal, probabilities within
+              5e-2), 65 forwards' launches exact, requests/s over HTTP
+              against the direct call. Empty files stand in for the
+              requests' images (no image_b64 decoding).
+13. okvqa   -- the CNN family trains one epoch on COCO-style OK-VQA files
+              written by the phase (4 train batches and 1 test batch of
+              64, the reference config, the cache on: 21 bottleneck
+              launches build it, 0 per step, 6 attention per eval
+              forward); finite losses, JAX's dataset line, and the labels
+              the steps took equal the CPU collate's for the same seed,
+              each one of its question's 10 annotator answers.
+14. optimizers -- SGD (momentum 0.9), Lamb (weight decay 0.1) and Adafactor
+              on phase 13's model and a cached batch, each from the same
+              weights: 3 steps at dropout 0 at LR 1e-2 on the repeated
+              batch (the loss falls; the card's update within 1e-5, L2,
+              of the same optimizer stepped on CPU copies of the same
+              parameters, gradients and state); then step times of each
+              beside AdamW's, in turns.
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
@@ -168,7 +204,10 @@ family's training epoch, the cache's build included,
 ``train_launches_per_step`` and ``vit_train_launches_per_step`` per step of
 each variant and for the cache's build, ``resume_launches`` per resumed
 step and per cache rebuild, ``serve_from_checkpoint_launches`` over the
-64 requests served from a checkpoint; ``frcnn_launches`` and
+64 requests served from a checkpoint, ``heatmap_launches`` per heatmap
+forward of each family, ``http_launches`` over the 65 forwards behind the
+HTTP requests, ``okvqa_train_epoch_launches`` over the OK-VQA epoch, the
+cache's build included; ``frcnn_launches`` and
 ``cross_launches`` over each family's three served forwards,
 ``frcnn_train_epoch_launches`` / ``cross_train_epoch_launches`` and
 ``frcnn_train_launches_per_step`` / ``cross_train_launches_per_step``
@@ -210,9 +249,10 @@ BATCH = 64
 CHUNKS = 3
 # timed rounds per configuration of the serving phases (20 and 10 before
 # the ViT family's training phase joined the run, 10 and 6 before the
-# Faster-RCNN and cross-attention phases did; lowered to keep the whole run
-# under 800 s)
-ROUNDS = 6             # ask_batch, CNN family
+# Faster-RCNN and cross-attention phases did, 6 for the CNN family before
+# the heatmap, HTTP, OK-VQA and optimizer phases did; lowered to keep the
+# whole run under 800 s)
+ROUNDS = 4             # ask_batch, CNN family
 VIT_ROUNDS = 4         # ask_batch and generate_batch, ViT family
 FAMILY_ROUNDS = 4      # ask_batch, Faster-RCNN and cross-attention families
 GEN_TOKENS = 5         # generate_batch: answer length and beams
@@ -232,14 +272,20 @@ DISTINCT_IMAGES = 96   # per split; DAQUAR asks several questions per image
 BF16_STEPS = 5         # kernels on against off, dropout 0
 FP32_STEPS = 3
 # timed train steps per configuration, in turns (20 before the
-# Faster-RCNN and cross-attention phases joined the run)
-TRAIN_ROUNDS = 12
-FAMILY_TRAIN_ROUNDS = 6   # the same, Faster-RCNN and cross-attention
+# Faster-RCNN and cross-attention phases joined the run, 12 and 6 before
+# the heatmap, HTTP, OK-VQA and optimizer phases did)
+TRAIN_ROUNDS = 8
+FAMILY_TRAIN_ROUNDS = 4   # the same, Faster-RCNN and cross-attention
 # profiled train steps per configuration: the device's idle share and the
 # step's busy time and launches (10 before the ViT family's training phase
-# joined the run; the profiler's bookkeeping of a step's ~3000-6000 kernels
-# and their host operators took ~5 s per step)
-TRAIN_WINDOW = 3
+# joined the run, 3 before the heatmap, HTTP, OK-VQA and optimizer phases
+# did; the profiler's bookkeeping of a step's ~3000-6000 kernels and their
+# host operators took ~5 s per step)
+TRAIN_WINDOW = 2
+# back-to-back forwards in the profiled window of a breakdown line, whose
+# idle share they give (10 before the heatmap, HTTP, OK-VQA and optimizer
+# phases joined the run)
+IDLE_FORWARDS = 5
 # kernels on against off, same weights and batches, dropout 0. bf16: the
 # mean NLL may differ by what the forward's log-probs may (LOGPROB_TOL, the
 # serve phase's: t1/t2 and the probabilities re-rounded to bf16 in other
@@ -716,16 +762,17 @@ def phase_breakdown(torch, phase, label, parts, card):
     and, from the profiler, the device time of its kernels (kernel rows
     only: an operator row repeats its kernels' time) and how many it
     launched; the pairs/s of back-to-back forwards; the device's idle share
-    over 10 back-to-back forwards, with its busy time and its elapsed time
-    both taken in one profiled window (the profiler's own host work is in
-    that window); the forward's busiest kernels. Emits the line and returns
-    it."""
+    over IDLE_FORWARDS back-to-back forwards, with its busy time and its
+    elapsed time both taken in one profiled window (the profiler's own host
+    work is in that window); the forward's busiest kernels. Emits the line
+    and returns it."""
     with torch.inference_mode():
         wall = {name: cuda_ms(torch, fn, iters=10)
                 for name, fn in parts.items()}
         device = {name: profile_device(torch, fn, iters=1)
                   for name, fn in parts.items()}
-        window = profile_device(torch, parts["forward"], iters=10)
+        window = profile_device(torch, parts["forward"],
+                                iters=IDLE_FORWARDS)
     line = {"phase": phase, "config": label, "card": card,
             "batch": BATCH, "dtype": "bfloat16",
             "forward_pairs_per_s": BATCH / (wall["forward"] / 1e3),
@@ -735,7 +782,8 @@ def phase_breakdown(torch, phase, label, parts, card):
             "device_busy_ms": {k: v["busy_ms"] for k, v in device.items()},
             "kernel_launches": {k: v["launches"] for k, v in device.items()},
             "device_idle_share": 1.0 - window["busy_ms"] / window["elapsed_ms"],
-            "idle_window": {"forwards": 10, "busy_ms": window["busy_ms"],
+            "idle_window": {"forwards": IDLE_FORWARDS,
+                            "busy_ms": window["busy_ms"],
                             "elapsed_ms": window["elapsed_ms"]},
             "top_kernels": [{"us": us, "calls": n, "name": name}
                             for us, n, name in
@@ -2362,9 +2410,8 @@ def serve_from_checkpoint_family(torch, card, family):
             raise AssertionError(f"served log-probs {diff} from the "
                                  f"trainer's eval (tolerance {SERVED_TOL}),"
                                  f" top-1 equal {top1_equal}")
-        del session
         torch.cuda.empty_cache()
-        return {"phase": "serve_from_checkpoint", "family": family,
+        line = {"phase": "serve_from_checkpoint", "family": family,
                 "card": card, "model": SERVED_LAUNCHES[family][1],
                 "train_steps": SERVE_CKPT_STEPS, "requests": len(requests),
                 "dtype": "bfloat16 compute, fp32 weights",
@@ -2375,17 +2422,723 @@ def serve_from_checkpoint_family(torch, card, family):
                     "logprob_max_abs_diff": trimmed_diff,
                     "top1_agreement": trimmed_top1},
                 "launches": launches}
+        return session, data, line
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
 
 def phase_serve_from_checkpoint(torch, card):
-    lines = {f: serve_from_checkpoint_family(torch, card, f)
-             for f in SERVED_LAUNCHES}
+    """Every family served from a checkpoint. Returns the launch counts and
+    {family: (session, data)} of the families the heatmap and HTTP phases
+    serve again (CNN, Faster-RCNN, ViT)."""
+    lines, kept = {}, {}
+    for f in SERVED_LAUNCHES:
+        session, data, lines[f] = serve_from_checkpoint_family(torch, card, f)
+        emit(lines[f])
+        if f in HEATMAP_MODES:
+            kept[f] = (session, data)
+        del session
+        torch.cuda.empty_cache()
+    return {name: {f: line["launches"][name] for f, line in lines.items()}
+            for name in ("attention", "bottleneck")}, kept
+
+
+# ------------------------------------------------ the serving and evaluation
+# surfaces and the rest of the host side
+
+# heatmaps: the mode of each family, the top k, and the device step's
+# (attention, bottleneck) launches per forward
+HEATMAP_MODES = {"cnn": "cam", "frcnn": "cam", "vit": "rollout"}
+HEATMAP_TOP_K = 3
+HEATMAP_LAUNCHES = {"cam": (6, 7), "rollout": (0, 0)}
+# CAMs, kernels on against off in bf16: the channel mean of the features of
+# a bf16 tower whose blocks run fused or unfused, relative to the features'
+# largest magnitude (the kernel phase's BLOCK_TOL: a mean is off by no more
+# than what it averages). The gate reads the mean before the min-max
+# scaling, and relative to the features, not to the mean: over 256-2048
+# channels of both signs the mean is a small share of the features'
+# magnitude, and the scaling divides by each map's range, a small share of
+# the mean's on seeded weights and noise images; the line reports both
+# ratios and the scaled maps' difference
+CAM_TOL = 2e-2
+# the device's rollout mask against the numpy one on host copies of the same
+# fp32 maps: the same products in the same order, summed by other libraries
+ROLLOUT_TOL = 1e-5
+HEATMAP_ROUNDS = 5
+# the collate keys the model does not take (generate_heatmaps's)
+_EVAL_KEYS = ("answers", "questions", "image_fns", "annotation_ids")
+
+HTTP_FAMILIES = ("cnn", "vit")
+
+OKVQA_TRAIN_BATCHES = 4
+OKVQA_TEST_BATCHES = 1
+OKVQA_IMAGES = {"train": 128, "val": 64}   # 192 unique: 3 cache chunks
+# (attention, bottleneck) launches of the cache's build, of each train step
+# (cached, production dropout) and of each eval forward
+OKVQA_LAUNCHES = {"cache_build": (0, 7 * 3), "train": (0, 0), "eval": (6, 0)}
+
+OPT_STEPS = 3
+# the card's update against the same optimizer stepped on CPU copies of the
+# same fp32 parameters, clipped gradients and state: the same fp32 math, but
+# other reduction orders and other last bits of rsqrt and fused multiplies,
+# so an element now and then rounds to the neighbouring fp32 value of its
+# parameter. One such step is 6e-8 of the parameter, so its share of the
+# update falls as the update grows: at 1e-2 (OPT_LR, every group) it stays
+# far below OPT_TOL, at 1e-4 it would not.
+OPT_TOL = 1e-5
+OPT_LR = 1e-2
+OPT_ROUNDS = 5
+OPTIMIZERS = {"SGD": {"momentum": 0.9}, "Lamb": {"weight_decay": 0.1},
+              "Adafactor": {}}
+
+
+def _model_batch(torch, batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(DEVICE)
+            for k, v in batch.items()
+            if k not in _EVAL_KEYS and not k.startswith("_")}
+
+
+def _plain_vit(session, plain: bool):
+    """The ViT tower's attention on its plain path (``plain``) or on the
+    kernel: the path rollout takes, which needs the maps."""
+    for layer in session.model.vision_model.encoder.layer:
+        layer.attention.attention.use_kernel = not plain
+
+
+def heatmap_family(torch, card, family, session, data):
+    """The heatmap device step on one test batch of 64 of a session served
+    from a checkpoint (bf16): launches, maps, top-k against ``ask_batch``
+    on the same requests, kernels on against off (CAM) or the device's mask
+    against the numpy one (rollout), timings and host bytes."""
+    from t5_resnet_vqa_torch.data import DataLoader
+    from t5_resnet_vqa_torch.eval.wups import wup_measure
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train.trainer import prepare_model
+    from t5_resnet_vqa_torch.viz import (
+        heatmap_step,
+        make_infer_fn,
+        rollout_mask,
+        rollout_mask_batch,
+    )
+
+    mode = HEATMAP_MODES[family]
+    answers, _, test_ds, load_images = data
+    samples = test_ds[:BATCH]
+    requests = [(s.image_path, s.question.question_text) for s in samples]
+    with seeded_images(load_images):
+        batch = next(iter(DataLoader(samples, session.collate, BATCH)))
+    targets = np.asarray(batch["annotation_ids"])
+    device_batch = _model_batch(torch, batch)
+    autocast = lambda: torch.autocast(DEVICE, dtype=torch.bfloat16)
+
+    def step(model):
+        with torch.inference_mode(), autocast():
+            return heatmap_step(model, device_batch, mode, HEATMAP_TOP_K)
+
+    model = session.model.eval()
+    step(model)
+    torch.cuda.synchronize()
+    A.launches = 0
+    K.launches = 0
+    out = step(model)
+    topk = out["topk"].cpu().numpy()
+    maps = out["maps"].cpu().numpy()
+    launches = {"attention": A.launches, "bottleneck": K.launches}
+    want = dict(zip(("attention", "bottleneck"), HEATMAP_LAUNCHES[mode]))
+    if launches != want:
+        raise AssertionError(f"{family} heatmap launches {launches}, "
+                             f"expected {want}")
+    # C5 (stride 32), the FPN's pool level (stride 64), 16x16 patches
+    grid = {"cnn": IMAGE // 32, "frcnn": IMAGE // 64,
+            "vit": VIT_IMAGE // 16}[family]
+    if maps.shape != (BATCH, grid, grid) or not np.isfinite(maps).all():
+        raise AssertionError(f"{family} maps of shape {maps.shape}, finite "
+                             f"{np.isfinite(maps).all()}")
+    if mode == "cam" and not (maps.min() >= 0.0 and maps.max() <= 1.0):
+        raise AssertionError(f"CAMs outside [0, 1]: {maps.min()}, "
+                             f"{maps.max()}")
+
+    # the same requests through ask_batch: the ViT tower on the plain path
+    # the rollout forward takes (it needs the maps)
+    if mode == "rollout":
+        _plain_vit(session, True)
+    with seeded_images(load_images):
+        results = session.ask_batch(requests, top_k=HEATMAP_TOP_K)
+        served_lp = session._predict(session._to_device(
+            session._collate_chunk(requests))).float().cpu().numpy()
+    if mode == "rollout":
+        _plain_vit(session, False)
+    logprob_diff = float(np.abs(out["log_probs"].float().cpu().numpy()
+                                - served_lp).max())
+    heat_answers = [[answers[int(i)] for i in row] for row in topk]
+    if heat_answers != [r["top_answers"] for r in results]:
+        bad = sum(h != r["top_answers"] for h, r in zip(heat_answers,
+                                                        results))
+        raise AssertionError(f"{family}: the heatmap's top-{HEATMAP_TOP_K} "
+                             f"differs from ask_batch's in {bad} rows "
+                             f"(log-probs {logprob_diff} apart)")
+
+    def routing(ranked):
+        return [any(wup_measure(a, answers[int(t)]) == 1.0 for a in row)
+                for row, t in zip(ranked, targets)]
+
+    def avg_wups(ranked):
+        return float(np.mean([wup_measure(row[0], answers[int(t)])
+                              for row, t in zip(ranked, targets)]))
+
+    served_answers = [r["top_answers"] for r in results]
+    perfect = routing(heat_answers)
+    if perfect != routing(served_answers) or \
+            avg_wups(heat_answers) != avg_wups(served_answers):
+        raise AssertionError(f"{family}: routing or WUPS differ from "
+                             f"ask_batch's")
+
+    line = {"phase": "heatmaps", "family": family, "mode": mode,
+            "card": card, "model": SERVED_LAUNCHES[family][1],
+            "dtype": "bfloat16 compute, fp32 weights", "batch": BATCH,
+            "top_k": HEATMAP_TOP_K, "launches_per_forward": launches,
+            "map_shape": list(maps.shape),
+            "logprob_diff_vs_ask_batch": logprob_diff,
+            "topk_equal_ask_batch": True, "perfect_matches": int(sum(perfect)),
+            "average_wups": avg_wups(heat_answers)}
+    if mode == "cam":
+        spec = FAMILIES.get(family)
+        build = spec["build"] if spec else _build_model
+        plain = prepare_model(build(torch, torch.float32, False),
+                              torch.device(DEVICE), torch.bfloat16)
+        plain.load_state_dict(model.state_dict(), strict=True)
+        off = step(plain.eval())
+        lp_diff = float((out["log_probs"].float()
+                         - off["log_probs"].float()).abs().max())
+        with torch.inference_mode(), autocast():
+            on_f, off_f = (m.compute_vision_features(
+                device_batch["image_tensors"]).float()
+                for m in (model, plain))
+        on_mean, off_mean = on_f.mean(dim=-1), off_f.mean(dim=-1)
+        f_scale = float(off_f.abs().max())
+        m_scale = float(off_mean.abs().max())
+        mean_diff = float((on_mean - off_mean).abs().max())
+        cam_diff = float((out["maps"] - off["maps"]).abs().max())
+        if not (lp_diff <= LOGPROB_TOL["bfloat16"]
+                and mean_diff <= CAM_TOL * f_scale):
+            raise AssertionError(
+                f"{family} kernels on/off: log-probs {lp_diff} "
+                f"(tolerance {LOGPROB_TOL['bfloat16']}), channel-mean CAMs "
+                f"{mean_diff / f_scale} of the features' magnitude "
+                f"(tolerance {CAM_TOL})")
+        line.update({
+            "kernels_off_logprob_diff": lp_diff,
+            "kernels_off_feature_rel_diff":
+                float((on_f - off_f).abs().max()) / f_scale,
+            "kernels_off_cam_mean_diff_rel_features": mean_diff / f_scale,
+            "kernels_off_cam_mean_diff_rel_mean": mean_diff / m_scale,
+            "kernels_off_scaled_cam_diff": cam_diff,
+            "cam_mean_share_of_features": m_scale / f_scale,
+            "cam_min_range_share_of_mean": float(
+                (off_mean.amax(dim=(1, 2)) - off_mean.amin(dim=(1, 2)))
+                .min()) / m_scale,
+            "logprob_tol": LOGPROB_TOL["bfloat16"], "cam_tol": CAM_TOL})
+        del plain, off, on_f, off_f, on_mean, off_mean
+    else:
+        with torch.inference_mode(), autocast():
+            attentions = model(**device_batch, return_attentions=True)[2]
+            device_masks = rollout_mask_batch(attentions)
+        host_maps = attentions.cpu().numpy()
+        host_masks = np.stack([rollout_mask(host_maps[:, b])
+                               for b in range(BATCH)])
+        mask_diff = float(np.abs(device_masks.cpu().numpy()
+                                 - host_masks).max())
+        step_diff = float((device_masks - out["maps"]).abs().max())
+        if not (mask_diff <= ROLLOUT_TOL and step_diff == 0.0):
+            raise AssertionError(f"rollout masks: device against numpy "
+                                 f"{mask_diff} (tolerance {ROLLOUT_TOL}), "
+                                 f"against the step {step_diff}")
+        line.update({"attention_maps": list(attentions.shape),
+                     "attention_maps_dtype": str(attentions.dtype),
+                     "attention_maps_bytes": attentions.numel()
+                     * attentions.element_size(),
+                     "rollout_mask_diff": mask_diff,
+                     "rollout_tol": ROLLOUT_TOL})
+        del attentions, device_masks, host_maps
+
+    # timings: the device step alone (CUDA events, and its kernels' busy
+    # time from the profiler), and make_infer_fn's whole call on the host
+    # batch (copy in, device step, copy out of the top-k and the maps)
+    infer = make_infer_fn(model, mode, HEATMAP_TOP_K, torch.bfloat16)
+    host_batch = {k: v for k, v in batch.items()
+                  if k not in _EVAL_KEYS and not k.startswith("_")}
+    infer(host_batch)
+    infer_ms = []
+    for _ in range(HEATMAP_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = infer(host_batch)
+        infer_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_device(torch, lambda: step(model))
+    line.update({
+        "device_step_ms": cuda_ms(torch, lambda: step(model),
+                                  iters=HEATMAP_ROUNDS, warmup=1),
+        "device_busy_ms": prof["busy_ms"],
+        "device_step_kernel_launches": prof["launches"],
+        "infer_fn_ms_median": float(np.median(infer_ms)),
+        "host_bytes_per_batch": int(sum(v.nbytes for v in host.values())),
+        "note": "the host step (overlays, PNGs) needs cv2, which this "
+                "machine lacks: the CPU tests hold it against JAX's"})
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_heatmaps(torch, card, kept):
+    lines = {f: heatmap_family(torch, card, f, *kept[f])
+             for f in HEATMAP_MODES}
+    for line in lines.values():
+        emit(line)
+    return {name: {f: line["launches_per_forward"][name]
+                   for f, line in lines.items()}
+            for name in ("attention", "bottleneck")}
+
+
+def _http(server, method, path, body=None, raw=None):
+    """(status, JSON reply) of one request to ``server``."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://{server.host}:{server.port}{path}"
+    data = raw if raw is not None else (
+        json.dumps(body).encode() if body is not None else None)
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_family(torch, card, family, session, data):
+    """``VQAHTTPServer`` on an ephemeral port over a session served from a
+    checkpoint: /healthz, 64 /v1/ask, one /v1/ask_batch of 64, /v1/generate
+    and a bad body, against the session's direct calls."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.eval.http_server import VQAHTTPServer
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+
+    answers, _, test_ds, load_images = data
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_http_{family}_")
+    server = None
+    try:
+        # the server checks that a request's image_path is a file: empty
+        # files stand in, and their images are the seeded ones
+        requests = []
+        for s in test_ds[:BATCH]:
+            path = os.path.join(tmp, s.image_path)
+            open(path, "wb").close()
+            requests.append((path, s.question.question_text))
+        stub = lambda paths: load_images([os.path.basename(p)
+                                          for p in paths])
+        server = VQAHTTPServer(session, port=0).start()
+        bodies = [{"image_path": p, "question": q, "top_k": 3}
+                  for p, q in requests]
+        with seeded_images(stub):
+            session.ask_batch(requests[:1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            direct = session.ask_batch(requests, top_k=3)
+            direct_s = time.perf_counter() - t0
+            A.launches = 0
+            K.launches = 0
+            status, health = _http(server, "GET", "/healthz")
+            t0 = time.perf_counter()
+            singles = [_http(server, "POST", "/v1/ask", b) for b in bodies]
+            singles_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            batch_status, batched = _http(
+                server, "POST", "/v1/ask_batch",
+                {"requests": [{"image_path": p, "question": q}
+                              for p, q in requests], "top_k": 3})
+            batch_s = time.perf_counter() - t0
+            launches = {"attention": A.launches, "bottleneck": K.launches}
+            generated = {}
+            body = {"image_path": requests[0][0], "question": requests[0][1],
+                    "max_answer_length": GEN_TOKENS}
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for beams in (1, GEN_BEAMS):
+                    generated[beams] = (
+                        _http(server, "POST", "/v1/generate",
+                              dict(body, num_beams=beams)),
+                        session.generate(*requests[0], num_beams=beams,
+                                         max_answer_length=GEN_TOKENS)
+                        if family == "vit" else None)
+            bad = _http(server, "POST", "/v1/ask", raw=b"{not json")
+        if status != 200 or health["family"] != session.family or \
+                health["batch_size"] != BATCH or \
+                health["answer_space_size"] != ANSWERS:
+            raise AssertionError(f"/healthz: {status} {health}")
+        if bad != (400, {"error": "body is not JSON"}):
+            raise AssertionError(f"a bad body got {bad}")
+        per_forward = SERVED_LAUNCHES[family][0]
+        want = {"attention": per_forward[0] * (BATCH + 1),
+                "bottleneck": per_forward[1] * (BATCH + 1)}
+        if launches != want:
+            raise AssertionError(f"{family} launches over 64 asks and one "
+                                 f"ask_batch {launches}, expected {want}")
+        if any(st != 200 for st, _ in singles) or batch_status != 200:
+            raise AssertionError(f"{family}: HTTP statuses "
+                                 f"{[st for st, _ in singles]} {batch_status}")
+        prob_diff = 0.0
+        for got in ([r for _, r in singles], batched["results"]):
+            for g, d in zip(got, direct):
+                if g["answer"] != d["answer"]:
+                    raise AssertionError(f"{family}: HTTP answer "
+                                         f"{g['answer']!r} against "
+                                         f"{d['answer']!r}")
+                prob_diff = max(prob_diff, float(np.abs(
+                    np.asarray(g["top_probs"]) - d["top_probs"]).max()))
+        if not prob_diff <= LOGPROB_TOL["bfloat16"]:
+            raise AssertionError(f"{family}: HTTP probabilities {prob_diff} "
+                                 f"from the direct call's")
+        for beams, ((st, got), want_gen) in generated.items():
+            if family == "vit":
+                if st != 200 or got["token_ids"] != want_gen["token_ids"]:
+                    raise AssertionError(f"/v1/generate ({beams} beams): "
+                                         f"{st} {got} against {want_gen}")
+            elif st != 400 or "generate_batch needs the ViT" not in \
+                    got["error"]:
+                raise AssertionError(f"/v1/generate on {family}: {st} {got}")
+        return {"phase": "http", "family": family, "card": card,
+                "model": SERVED_LAUNCHES[family][1], "batch": BATCH,
+                "requests": len(requests), "launches": launches,
+                "healthz": health,
+                "ask_requests_per_s": len(requests) / singles_s,
+                "ask_batch_pairs_per_s": len(requests) / batch_s,
+                "direct_ask_batch_pairs_per_s": len(requests) / direct_s,
+                "http_prob_max_abs_diff": prob_diff,
+                "prob_tol": LOGPROB_TOL["bfloat16"],
+                "generate": {str(b): g[0][0] for b, g in generated.items()},
+                "bad_body": bad[0],
+                "note": "image_b64 decoding is not exercised: the card's "
+                        "machine has no decoder, the images are stubbed"}
+    finally:
+        if server is not None:
+            server.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_http(torch, card, kept):
+    lines = {f: http_family(torch, card, f, *kept[f]) for f in HTTP_FAMILIES}
     for line in lines.values():
         emit(line)
     return {name: {f: line["launches"][name] for f, line in lines.items()}
             for name in ("attention", "bottleneck")}
+
+
+def okvqa_corpus(root):
+    """COCO-style question and annotation JSONs for both splits under
+    ``root``, each question with a 10-answer annotator grid over the answer
+    space, and empty image files under COCO's names (the dataset lists the
+    directory; seeded images stand in for the pixels). Returns (answers,
+    load_images)."""
+    from t5_resnet_vqa_torch.core import constants
+
+    answers = [f"answer{i:03d}" for i in range(ANSWERS)]
+    qtypes = list(constants.QUESTION_TYPES)
+    rng = np.random.default_rng(4)
+    images = {}
+    counts = {"train": OKVQA_TRAIN_BATCHES * BATCH,
+              "val": OKVQA_TEST_BATCHES * BATCH}
+    for split, base in (("train", 100000), ("val", 200000)):
+        image_dir = os.path.join(root, f"{split}2014")
+        os.makedirs(image_dir)
+        ids = [base + i for i in range(OKVQA_IMAGES[split])]
+        for image_id in ids:
+            path = os.path.join(image_dir,
+                                f"COCO_{split}2014_{image_id:012d}.png")
+            open(path, "wb").close()
+            images[path] = rng.integers(0, 256, (IMAGE, IMAGE, 3),
+                                        dtype=np.uint8)
+        questions, annotations = [], []
+        for i in range(counts[split]):
+            qid = base * 10 + i
+            image_id = ids[i % len(ids)]
+            votes = ([answers[int(rng.integers(ANSWERS))]] * 7
+                     + [answers[int(rng.integers(ANSWERS))]
+                        for _ in range(3)])
+            questions.append({"question": f"what is on the table {i % 17}",
+                              "question_id": qid, "image_id": image_id})
+            annotations.append({
+                "question_id": qid, "image_id": image_id,
+                "question_type": qtypes[int(rng.integers(len(qtypes)))],
+                "answer_type": "other",
+                "answers": [{"answer": v, "answer_confidence": "yes",
+                             "answer_id": k + 1}
+                            for k, v in enumerate(votes)]})
+        name = "train" if split == "train" else "val"
+        with open(os.path.join(
+                root, f"OpenEnded_mscoco_{name}2014_questions.json"),
+                "w") as f:
+            json.dump({"questions": questions}, f)
+        with open(os.path.join(root, f"mscoco_{name}2014_annotations.json"),
+                  "w") as f:
+            json.dump({"annotations": annotations}, f)
+
+    def load_images(paths):
+        return np.stack([images[p] for p in paths])
+
+    return answers, load_images
+
+
+def phase_okvqa(torch, card):
+    """The CNN family trains on OK-VQA: ``dataset_type="okvqa"``, the
+    reference config (production dropout, the cache on, bf16), 4 train and
+    1 test batch of 64. Returns the launches, the trained model, a cached
+    train batch and the config, which the optimizer phase reuses."""
+    import shutil
+    import tempfile
+
+    from t5_resnet_vqa_torch.data import DataLoader, OkVqaTrainableDataset
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train import VQATrainer
+    from t5_resnet_vqa_torch.train.trainer import build_collates
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_okvqa_")
+    try:
+        root = os.path.join(tmp, "okvqa")
+        os.makedirs(root)
+        answers, load_images = okvqa_corpus(root)
+        cfg = train_config(os.path.join(tmp, "out"))
+        cfg.dataset.dataset_type = "okvqa"
+        cfg.dataset.root_data_dir = root
+        calls = {"train": [], "eval": []}
+        labels = []
+
+        def counted(kind, fn):
+            def run(batch):
+                a0, k0 = A.launches, K.launches
+                if kind == "train":
+                    labels.append(batch["annotation_ids"].cpu().numpy())
+                out = fn(batch)
+                calls[kind].append((A.launches - a0, K.launches - k0,
+                                    out[0]))
+                return out
+            return run
+
+        A.launches = 0
+        K.launches = 0
+        t0 = time.perf_counter()
+        with seeded_images(load_images):
+            trainer = VQATrainer(_build_model(torch, torch.float32, True),
+                                 cfg, answers)
+            cache_build = (A.launches, K.launches)
+            trainer.train_step = counted("train", trainer.train_step)
+            trainer.eval_step = counted("eval", trainer.eval_step)
+            trainer.train()
+        epoch_s = time.perf_counter() - t0
+        launches = {"attention": A.launches, "bottleneck": K.launches}
+        counts = {"cache_build": cache_build,
+                  "train": [c[:2] for c in calls["train"]],
+                  "eval": [c[:2] for c in calls["eval"]]}
+        want = {"cache_build": OKVQA_LAUNCHES["cache_build"],
+                "train": [OKVQA_LAUNCHES["train"]] * OKVQA_TRAIN_BATCHES,
+                "eval": [OKVQA_LAUNCHES["eval"]] * OKVQA_TEST_BATCHES}
+        if counts != want:
+            raise AssertionError(f"OK-VQA launches (attention, bottleneck) "
+                                 f"{counts}, expected {want}")
+        losses = [float(c[2]) for c in calls["train"]]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"OK-VQA losses {losses}")
+        with open(trainer.logger.log_path) as f:
+            log = f.read()
+        n_train, n_val = (OKVQA_TRAIN_BATCHES * BATCH,
+                          OKVQA_TEST_BATCHES * BATCH)
+        for line in (f"Dataset: OK-VQA (COCO-style), {n_train} train / "
+                     f"{n_val} val questions, 10-annotator-answer grid -> "
+                     f"fresh-answer sampling",
+                     f"Frozen-feature cache: {sum(OKVQA_IMAGES.values())} "
+                     f"images", "Average WUPS Score"):
+            if line not in log:
+                raise AssertionError(f"the OK-VQA log lacks {line!r}")
+
+        # the labels the steps took: the CPU collate's for the same seed,
+        # each one of its question's 10 annotator answers
+        dk = cfg.dataset
+        dataset = OkVqaTrainableDataset.from_files(
+            dk.root_data_dir, dk.train_annotations_json_fn,
+            dk.train_questions_json_fn, dk.train_images_dir, "train")
+        collate, _ = build_collates(dk, answers, cfg.trainer.seed)
+        collate.emit_images = False
+        replay = list(DataLoader(dataset, collate, BATCH, shuffle=True,
+                                 seed=cfg.trainer.seed))
+        for got, cpu in zip(labels, replay):
+            if not np.array_equal(got, cpu["annotation_ids"]):
+                raise AssertionError("the card's OK-VQA labels differ from "
+                                     "the CPU collate's")
+            for label, row in zip(got, cpu["_indices"]):
+                if answers[int(label)] not in \
+                        dataset[int(row)].annotation.answers:
+                    raise AssertionError("a label outside its question's "
+                                         "annotator grid")
+        batch = first_batch(torch, trainer.train_dataloader)
+        model = trainer.model
+        del trainer
+        emit({"phase": "okvqa", "card": card,
+              "model": "resnet50 + t5-base + 3xSGA", "answers": ANSWERS,
+              "dtype": "bfloat16 compute, fp32 master weights",
+              "dropout": "production (T5 0.1, SGA 0.1)", "batch": BATCH,
+              "train_steps": OKVQA_TRAIN_BATCHES,
+              "eval_forwards": OKVQA_TEST_BATCHES,
+              "questions": {"train": n_train, "val": n_val},
+              "images": OKVQA_IMAGES, "launches": launches,
+              "launches_cache_build": dict(zip(("attention", "bottleneck"),
+                                               cache_build)),
+              "losses": losses, "epoch_s": epoch_s,
+              "labels_equal_cpu_collate": True,
+              "note": "COCO-style JSONs written by the phase; empty image "
+                      "files, seeded pixels"})
+        return launches, (model, batch, cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cpu_tree(torch, tree):
+    """A copy of a state_dict tree on the host (tensors copied, even those
+    already there)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu_tree(torch, v) for v in tree]
+    return tree
+
+
+def optimizer_steps(torch, model, batch, cfg, opt_type, kwargs):
+    """OPT_STEPS steps of ``opt_type`` at dropout 0 (the model in eval mode)
+    on ``batch`` repeated, every group at OPT_LR: the losses, and per step
+    the relative L2 gap of the card's update from the same optimizer stepped
+    on CPU copies of the step's parameters, clipped gradients and state
+    (over all tensors, and the farthest tensor)."""
+    from t5_resnet_vqa_torch.train import build_optimizer
+
+    cfg = parity_config(cfg)
+    cfg.optimizer.type = opt_type
+    cfg.optimizer.kwargs = dict(kwargs)
+    for key in ("default_lr", "lm_encoder_lr", "lm_decoder_lr", "vision_lr",
+                "classifier_lr", "fusion_lr"):
+        setattr(cfg.optimizer, key, OPT_LR)
+    optimizer, scheduler, _, trainable = build_optimizer(
+        model, cfg.optimizer, cfg.lr_scheduler, OPT_STEPS,
+        frozen_modules=model.frozen_modules())
+    groups = [len(g["params"]) for g in optimizer.param_groups]
+    names = {id(p): n for n, p in model.named_parameters()}
+    model.eval()
+    losses, gaps, worst = [], [], []
+    for _ in range(OPT_STEPS):
+        optimizer.zero_grad(set_to_none=True)
+        with torch.autocast(DEVICE, dtype=torch.bfloat16):
+            loss = model(**batch)[1]
+        loss.backward()
+        torch.nn.utils.clip_grad_norm_(trainable,
+                                       cfg.trainer.gradient_clipping)
+        before = [p.detach().to("cpu", copy=True) for p in trainable]
+        cpu_params = [b.clone() for b in before]
+        for c, p in zip(cpu_params, trainable):
+            c.grad = p.grad.detach().to("cpu", copy=True)
+        cpu_groups, i = [], 0
+        for n in groups:
+            cpu_groups.append({"params": cpu_params[i:i + n]})
+            i += n
+        reference = type(optimizer)(cpu_groups, lr=0.0)
+        reference.load_state_dict(_cpu_tree(torch, optimizer.state_dict()))
+        optimizer.step()
+        scheduler.step()
+        reference.step()
+        losses.append(float(loss.detach()))
+        num = den = 0.0
+        per_tensor = []
+        for p, b, c in zip(trainable, before, cpu_params):
+            card = p.detach().cpu() - b
+            want = c - b
+            d = float((card - want).double().square().sum())
+            w = float(want.double().square().sum())
+            num, den = num + d, den + w
+            per_tensor.append(((d / max(w, 1e-300)) ** 0.5, names[id(p)]))
+        gaps.append((num / den) ** 0.5)
+        worst.append(max(per_tensor))
+    model.train()
+    return losses, gaps, worst, sum(p.numel() for p in trainable)
+
+
+def phase_optimizers(torch, card, model, batch, cfg):
+    """SGD (momentum 0.9), Lamb (weight decay 0.1) and Adafactor on the CNN
+    family's cached step (B=64, bf16 compute, fp32 master weights), each
+    from the same weights: OPT_STEPS steps at dropout 0 on a repeated batch
+    at OPT_LR (the loss must fall; the card's update within OPT_TOL of the
+    CPU's),
+    then step times of each beside AdamW(amsgrad) of the reference config,
+    in turns, at production dropout."""
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.train import build_optimizer, make_train_step
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    results = {}
+    for opt_type, kwargs in OPTIMIZERS.items():
+        model.load_state_dict(start)
+        a0, k0 = A.launches, K.launches
+        losses, gaps, worst, n = optimizer_steps(torch, model, batch, cfg,
+                                                 opt_type, kwargs)
+        launches = {"attention": (A.launches - a0) // OPT_STEPS,
+                    "bottleneck": (K.launches - k0) // OPT_STEPS}
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{opt_type}: losses {losses} on a "
+                                 f"repeated batch")
+        if not max(gaps) <= OPT_TOL:
+            raise AssertionError(f"{opt_type}: the card's update is "
+                                 f"{max(gaps)} from the CPU's (tolerance "
+                                 f"{OPT_TOL}); per step the tensor "
+                                 f"farthest from it: {worst}")
+        results[opt_type] = {"kwargs": kwargs, "losses": losses,
+                             "update_rel_l2_vs_cpu": gaps,
+                             "worst_tensor_rel_l2_vs_cpu": worst,
+                             "launches_per_step_dropout_0": launches,
+                             "trainable_parameters": n}
+
+    steps = {}
+    for opt_type, kwargs in {"AdamW": dict(cfg.optimizer.kwargs),
+                             **OPTIMIZERS}.items():
+        c = parity_config(cfg)
+        c.optimizer.type = opt_type
+        c.optimizer.kwargs = dict(kwargs)
+        optimizer, scheduler, _, trainable = build_optimizer(
+            model, c.optimizer, c.lr_scheduler, 10000,
+            frozen_modules=model.frozen_modules())
+        step = make_train_step(model, optimizer, scheduler, trainable,
+                               c.trainer.gradient_clipping, torch.bfloat16)
+        steps[opt_type] = lambda step=step: float(step(batch)[0])
+        steps[opt_type]()
+    model.train()
+    times = {t: [] for t in steps}
+    for r in range(OPT_ROUNDS):
+        for t in (list(steps) if r % 2 == 0 else list(steps)[::-1]):
+            times[t].append(step_ms(torch, steps[t]))
+    for t, ms in times.items():
+        results.setdefault(t, {"kwargs": dict(cfg.optimizer.kwargs)})
+        results[t].update({"train_step_ms": float(np.median(ms)),
+                           "steps_ms": ms})
+    model.load_state_dict(start)
+    emit({"phase": "optimizers", "card": card,
+          "model": "resnet50 + t5-base + 3xSGA (cached features)",
+          "dtype": "bfloat16 compute, fp32 master weights", "batch": BATCH,
+          "steps": OPT_STEPS, "tol": OPT_TOL,
+          "timing": "production dropout, in turns, median of "
+                    f"{OPT_ROUNDS}",
+          "optimizers": results})
+    return results
 
 
 def main() -> int:
@@ -2417,7 +3170,15 @@ def main() -> int:
     train_vit = phase_train_vit(torch, card)
     family_train = {f: phase_train_family(torch, card, f) for f in FAMILIES}
     resumed = phase_resume(torch, card)
-    served = phase_serve_from_checkpoint(torch, card)
+    served, kept = phase_serve_from_checkpoint(torch, card)
+    heatmap = phase_heatmaps(torch, card, kept)
+    http = phase_http(torch, card, kept)
+    del kept
+    torch.cuda.empty_cache()
+    okvqa, (model, batch, cfg) = phase_okvqa(torch, card)
+    phase_optimizers(torch, card, model, batch, cfg)
+    del model, batch
+    torch.cuda.empty_cache()
 
     print(card, flush=True)
 
@@ -2441,7 +3202,10 @@ def main() -> int:
                         "vit_train_launches_per_step":
                             train_vit["per_step"][name],
                         "resume_launches": resumed[name],
-                        "serve_from_checkpoint_launches": served[name]})
+                        "serve_from_checkpoint_launches": served[name],
+                        "heatmap_launches": heatmap[name],
+                        "http_launches": http[name],
+                        "okvqa_train_epoch_launches": okvqa[name]})
         for f in FAMILIES:
             kernels[-1].update({
                 f"{f}_launches": family_launches[f][name],

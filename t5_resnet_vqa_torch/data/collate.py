@@ -14,7 +14,8 @@ native library for a bilinear float batch with ``use_native``), then
     0.5 (the in21k ViT image processor), key ``pixel_values``;
 
 or the resized uint8 batch with ``emit_uint8``, which the model scales (and
-normalizes) on the device.
+normalizes) on the device. ``reduced_decode`` and ``num_workers`` are the
+loader's ``reduce`` and ``workers`` (``data/preprocessing.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ class DaquarCollateBase:
         tokenizer=None,
         use_native: bool = True,
         emit_uint8: bool = False,
+        reduced_decode: int = 0,
+        num_workers: int = 0,
     ):
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
         self._answer_index = {a: i for i, a in enumerate(self.answer_spaces)}
@@ -60,6 +63,8 @@ class DaquarCollateBase:
         self.emit_images = True
         self.use_native = use_native
         self.emit_uint8 = emit_uint8
+        self.reduced_decode = reduced_decode
+        self.num_workers = num_workers
         self.resizing_dimensions = (constants.CNN_IMAGE_SIZE,
                                     constants.CNN_IMAGE_SIZE)
         self.interpolation_strategy = "bilinear_interpolation"
@@ -114,7 +119,8 @@ class DaquarCollateBase:
         return load_image_batch(
             list(paths), self.resizing_dimensions,
             self.interpolation_strategy, normalize=self.normalize,
-            use_native=self.use_native, emit_uint8=self.emit_uint8)
+            use_native=self.use_native, emit_uint8=self.emit_uint8,
+            reduce=self.reduced_decode, workers=self.num_workers)
 
     def __call__(self, samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
         images = (self.load_images([s.image_path for s in samples])
@@ -131,9 +137,11 @@ class DaquarCnnCollate(DaquarCollateBase):
                                       constants.CNN_IMAGE_SIZE),
                  lang_model: str = "t5-base", eval_mode: bool = False,
                  seed: int = 0, tokenizer=None, use_native: bool = True,
-                 emit_uint8: bool = False):
+                 emit_uint8: bool = False, reduced_decode: int = 0,
+                 num_workers: int = 0):
         super().__init__(answer_spaces, lang_model, eval_mode, seed,
-                         tokenizer, use_native, emit_uint8)
+                         tokenizer, use_native, emit_uint8, reduced_decode,
+                         num_workers)
         self.interpolation_strategy = interpolation_strategy
         self.resizing_dimensions = tuple(resizing_dimensions)
 
@@ -148,8 +156,10 @@ class DaquarVitCollate(DaquarCollateBase):
     def __init__(self, answer_spaces: Sequence[str],
                  lang_model: str = "t5-base", eval_mode: bool = False,
                  seed: int = 0, tokenizer=None, use_native: bool = True,
-                 emit_uint8: bool = False):
+                 emit_uint8: bool = False, reduced_decode: int = 0,
+                 num_workers: int = 0):
         super().__init__(answer_spaces, lang_model, eval_mode, seed,
-                         tokenizer, use_native, emit_uint8)
+                         tokenizer, use_native, emit_uint8, reduced_decode,
+                         num_workers)
         self.resizing_dimensions = (constants.VIT_IMAGE_SIZE,
                                     constants.VIT_IMAGE_SIZE)

@@ -10,6 +10,14 @@ uint8 wire, cv2 resizes in uint8. The two differ by up to one uint8 step.
 Unlike the JAX package, a native library that cannot be built raises
 instead of falling back to cv2. ``cv2`` is imported inside the functions,
 so the module imports on machines without it.
+
+Two knobs of the JAX package's loader, both opt-in: ``reduce`` (2 or 4;
+``dataset_kwargs.reduced_decode``) decodes at 1/2 or 1/4 scale
+(``cv2.IMREAD_REDUCED_COLOR_{2,4}``: libjpeg's DCT-scaled decode for a
+JPEG), so the resize starts from the reduced image and the pixels differ
+slightly from a full decode; ``workers`` > 1 (``dataset_kwargs.
+num_workers``) decodes and resizes a batch's images on a thread pool
+(cv2 releases the interpreter lock inside ``imread`` and ``resize``).
 """
 
 from __future__ import annotations
@@ -25,11 +33,13 @@ _CV2_INTERP = {
 }
 
 
-def decode_image(path: str) -> np.ndarray:
-    """File -> RGB uint8 HWC array."""
+def decode_image(path: str, reduce: int = 0) -> np.ndarray:
+    """File -> RGB uint8 HWC array, at 1/``reduce`` scale for 2 or 4."""
     import cv2
 
-    arr = cv2.imread(path, cv2.IMREAD_COLOR)
+    flag = (getattr(cv2, f"IMREAD_REDUCED_COLOR_{reduce}")
+            if reduce in (2, 4) else cv2.IMREAD_COLOR)
+    arr = cv2.imread(path, flag)
     if arr is None:
         raise FileNotFoundError(f"cannot decode image: {path}")
     return cv2.cvtColor(arr, cv2.COLOR_BGR2RGB)
@@ -39,11 +49,12 @@ def load_and_resize_image(
     path: str,
     size: Tuple[int, int],
     interpolation_strategy: str = "bilinear_interpolation",
+    reduce: int = 0,
 ) -> np.ndarray:
     """-> resized RGB uint8 [H, W, 3]."""
     import cv2
 
-    img = decode_image(path)
+    img = decode_image(path, reduce)
     w, h = size
     return cv2.resize(img, (w, h),
                       interpolation=_CV2_INTERP[interpolation_strategy])
@@ -69,22 +80,33 @@ def load_image_batch(
     normalize: Optional[Tuple[Sequence[float], Sequence[float]]] = None,
     use_native: bool = True,
     emit_uint8: bool = False,
+    reduce: int = 0,
+    workers: int = 0,
 ) -> np.ndarray:
     """-> [B, H, W, 3] float32 NHWC batch (normalized when ``normalize`` is
     given), or the resized uint8 batch when ``emit_uint8`` (the model then
     scales and normalizes on the device). ``use_native`` sends a bilinear
     float batch through the native fp32 resize; it is ignored under
-    ``emit_uint8``."""
+    ``emit_uint8``. ``reduce`` and ``workers``: see the module docstring."""
     w, h = size
     paths = list(paths)
+
+    def per_image(fn):
+        if workers > 1 and len(paths) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(min(workers, len(paths))) as pool:
+                return list(pool.map(fn, paths))
+        return [fn(p) for p in paths]
+
     if (use_native and not emit_uint8
             and interpolation_strategy == "bilinear_interpolation"):
         from ..native import loader
         return loader.get_lib().resize_scale_batch(
-            [decode_image(p) for p in paths], (h, w), normalize)
+            per_image(lambda p: decode_image(p, reduce)), (h, w), normalize)
+    resized = per_image(lambda p: load_and_resize_image(
+        p, size, interpolation_strategy, reduce))
     out = np.empty((len(paths), h, w, 3),
                    np.uint8 if emit_uint8 else np.float32)
-    for i, path in enumerate(paths):
-        img = load_and_resize_image(path, size, interpolation_strategy)
+    for i, img in enumerate(resized):
         out[i] = img if emit_uint8 else finalize_image(img, normalize)
     return out

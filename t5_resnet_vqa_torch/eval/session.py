@@ -61,7 +61,8 @@ class VQAInferenceSession:
                  batch_size: int = 8, image_size: int = 256,
                  interpolation_strategy: str = "bilinear_interpolation",
                  lang_model: str = "t5-base", tokenizer=None,
-                 uint8_wire: bool = True,
+                 uint8_wire: bool = True, reduced_decode: int = 0,
+                 num_workers: int = 0,
                  compute_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None):
         if family not in (CNN_FAMILY, VIT_FAMILY, CROSS_FAMILY):
@@ -76,7 +77,8 @@ class VQAInferenceSession:
         # with uint8 on the wire the model scales (and, for the ViT family,
         # normalizes) the images on the device
         kw = dict(lang_model=lang_model, eval_mode=True, tokenizer=tokenizer,
-                  emit_uint8=uint8_wire)
+                  emit_uint8=uint8_wire, reduced_decode=reduced_decode,
+                  num_workers=num_workers)
         if family == CNN_FAMILY:
             self.collate = DaquarCnnCollate(
                 self.answer_spaces, interpolation_strategy,
@@ -93,7 +95,8 @@ class VQAInferenceSession:
                         device: DeviceLike = None) -> "VQAInferenceSession":
         """Serve ``best-model.pt`` and the answer space of
         ``model_ckpt_info.json`` from ``config.trainer.output_dir``, with
-        the config's model, image path, tokenizer and compute dtype.
+        the config's model, image path (``reduced_decode`` and
+        ``num_workers`` included), tokenizer and compute dtype.
         ``device=None`` is the config's ``trainer.device`` (the card unless
         it says "cpu"). The JAX session's ``mesh`` has no counterpart yet
         (ROADMAP.md, modules item 11)."""
@@ -103,10 +106,6 @@ class VQAInferenceSession:
         from ..train.trainer import config_compute_dtype, trainer_device
 
         dk = config.dataset
-        if dk.reduced_decode:
-            raise NotImplementedError(
-                "the port does not implement dataset_kwargs.reduced_decode "
-                "(reduced image decoding: ROADMAP.md, modules item 8)")
         ckpt = CheckpointManager(config.trainer.output_dir)
         info = ckpt.read_json("model_ckpt_info.json")
         if info is None:
@@ -127,7 +126,8 @@ class VQAInferenceSession:
             batch_size=batch_size, image_size=dk.image_size,
             interpolation_strategy=dk.interpolation_strategy,
             lang_model=dk.language_model_tokenizer, tokenizer=tokenizer,
-            uint8_wire=dk.uint8_wire_images,
+            uint8_wire=dk.uint8_wire_images, reduced_decode=dk.reduced_decode,
+            num_workers=dk.num_workers,
             compute_dtype=config_compute_dtype(config), device=device)
         # the trainer's resume guard: another id layout would scramble
         # every question's token ids
@@ -176,10 +176,11 @@ class VQAInferenceSession:
         The hash tokenizer cannot invert word ids, so its ``answer_text``
         holds ``<id>`` placeholders (a warning says so)."""
         if self.family != VIT_FAMILY:
+            # JAX's words: the HTTP server sends them as a 400's body
             raise ValueError(
-                f"generate_batch needs the ViT encoder-decoder family (T5 "
-                f"decoder); this session serves a {self.family!r} model: "
-                f"use ask/ask_batch for classification answers")
+                f"generate_batch needs the ViT enc-dec family (T5 decoder); "
+                f"this session serves a {self.family!r} model — use "
+                f"ask/ask_batch for classification answers")
         tokenizer = self.collate.tokenizer
         if str(getattr(tokenizer, "scheme", "")).startswith("hash"):
             import warnings

@@ -51,12 +51,14 @@ tower's ``pool`` level, the ResNet's C5 map, the ViT's pooled CLS); the
 cross-attention family has no separable tower, and the cache stays off with
 JAX's log line.
 
-Knobs of the JAX trainer that change nothing in the numbers are named in
-one startup log line and otherwise ignored; knobs that would change what
-is computed or written raise ``NotImplementedError`` naming the ROADMAP
-item that brings them (``reduced_decode``, OK-VQA). As in the JAX package,
-a resume restores neither the shuffle order nor the dropout generator: a
-resumed epoch does not replay an uninterrupted one.
+The data is DAQUAR, or OK-VQA with ``dataset_kwargs.dataset_type="okvqa"``
+(``data/okvqa.py``: the COCO-style JSONs through the DAQUAR collates, one
+of the 10 annotator answers drawn per epoch); ``reduced_decode`` and
+``num_workers`` reach the collates' image loader. Knobs of the JAX trainer
+that change nothing in the numbers are named in one startup log line and
+otherwise ignored. As in the JAX package, a resume restores neither the
+shuffle order nor the dropout generator: a resumed epoch does not replay
+an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -186,11 +188,12 @@ def build_collates(dk: DatasetConfig, answer_spaces: List[str], seed: int,
                    tokenizer=None, family: str = CNN_FAMILY):
     """(train collate, eval collate) of ``family`` from the dataset config,
     as the JAX trainer builds them (the image path of
-    ``use_native_preprocessor`` and ``uint8_wire_images``, seeded answer
-    choice)."""
+    ``use_native_preprocessor``, ``uint8_wire_images``, ``reduced_decode``
+    and ``num_workers``, seeded answer choice)."""
     kw = dict(lang_model=dk.language_model_tokenizer, seed=seed,
               tokenizer=tokenizer, use_native=dk.use_native_preprocessor,
-              emit_uint8=dk.uint8_wire_images)
+              emit_uint8=dk.uint8_wire_images,
+              reduced_decode=dk.reduced_decode, num_workers=dk.num_workers)
     if family != CNN_FAMILY:
         return (DaquarVitCollate(answer_spaces, **kw),
                 DaquarVitCollate(answer_spaces, eval_mode=True, **kw))
@@ -200,21 +203,6 @@ def build_collates(dk: DatasetConfig, answer_spaces: List[str], seed: int,
                              eval_mode=True, **kw))
 
 
-def _refuse_unported(config: Config) -> None:
-    """Raise on the knobs whose JAX behaviour the port does not have and
-    that would change what is computed or written."""
-    dk = config.dataset
-    refused = [
-        (dk.reduced_decode != 0, "dataset_kwargs.reduced_decode (reduced "
-         "image decoding: ROADMAP.md, modules item 8)"),
-        (dk.dataset_type != "daquar", f"dataset_kwargs.dataset_type="
-         f"{dk.dataset_type!r} (OK-VQA: ROADMAP.md, modules item 7)"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise NotImplementedError(f"the port does not implement {what}")
-
-
 class VQATrainer:
     """Trains a model of any of the four families on DAQUAR (see the module
     docstring)."""
@@ -222,7 +210,6 @@ class VQATrainer:
     def __init__(self, model: nn.Module, config: Config,
                  answer_spaces: List[str], train_dataset=None,
                  test_dataset=None, tokenizer=None):
-        _refuse_unported(config)
         self.config = config
         self.family = model_family(config.model)
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
@@ -305,6 +292,20 @@ class VQATrainer:
                                       tokenizer_file=dk.tokenizer_file)
             self.logger.log_message(
                 f"Tokenizer: real vocabulary from {dk.tokenizer_file}")
+        if dk.dataset_type == "okvqa":
+            from ..data.okvqa import OkVqaTrainableDataset
+            if train_dataset is None:
+                train_dataset = OkVqaTrainableDataset.from_files(
+                    dk.root_data_dir, dk.train_annotations_json_fn,
+                    dk.train_questions_json_fn, dk.train_images_dir, "train")
+            if test_dataset is None:
+                test_dataset = OkVqaTrainableDataset.from_files(
+                    dk.root_data_dir, dk.test_annotations_json_fn,
+                    dk.test_questions_json_fn, dk.test_images_dir, "val")
+            self.logger.log_message(
+                f"Dataset: OK-VQA (COCO-style), {len(train_dataset)} train / "
+                f"{len(test_dataset)} val questions, 10-annotator-answer "
+                f"grid -> fresh-answer sampling")
         if train_dataset is None:
             train_dataset = DaquarDataset(dk.root_data_dir, dk.train_csv_file,
                                           dk.images_dir, "train")
@@ -552,7 +553,6 @@ class VQATrainer:
             f"Not implemented by the port, no effect on the numbers: "
             f"steps_per_dispatch={tk.steps_per_dispatch} (one step per "
             f"call), fast_dropout_rng={tk.fast_dropout_rng} (TPU only), "
-            f"num_workers={dk.num_workers}, "
             f"use_pallas={cfg.model.use_pallas} (the port's kernels "
             f"are on), use_wandb={tk.use_wandb} (metrics.jsonl only)")
         lg.log_new_line()

@@ -68,7 +68,9 @@ def test_package_has_sources():
                 "train/callbacks.py", "eval/rouge.py", "utils/profiling.py",
                 "native/loader.py", "models/fpn.py",
                 "models/faster_rcnn_vqa.py", "models/roberta.py",
-                "models/cross_attention_vqa.py"):
+                "models/cross_attention_vqa.py", "data/answer_space.py",
+                "data/okvqa.py", "viz/__init__.py", "viz/heatmap.py",
+                "viz/__main__.py", "eval/http_server.py", "serve.py"):
         assert rel in names
     for cu in ("attention.cu", "bottleneck.cu"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", cu))

@@ -189,7 +189,22 @@ def test_from_checkpoint_guards(trained, monkeypatch, tmp_path):
     with pytest.raises(FileNotFoundError, match="model_ckpt_info.json"):
         VQAInferenceSession.from_checkpoint(
             _config(trained, Config, tmp_path / "empty"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        VQAInferenceSession.from_checkpoint(
-            _config(trained, Config, trained["tmp"] / "port",
-                    reduced_decode=2), device="cpu")
+    # reduced_decode, refused before it was ported, now serves as JAX's
+    kw = dict(reduced_decode=2, num_workers=2)
+    port_session = VQAInferenceSession.from_checkpoint(
+        _config(trained, Config, trained["tmp"] / "port", **kw),
+        batch_size=4, device="cpu")
+    assert (port_session.collate.reduced_decode,
+            port_session.collate.num_workers) == (2, 2)
+    jax_session = JaxSession.from_checkpoint(
+        _config(trained, JaxConfig, trained["tmp"] / "jax", **kw),
+        batch_size=4)
+    answers = trained["answers"]
+    reqs = [(img, f"what is on the table {i}")
+            for i, img in enumerate(trained["images"][:4])]
+    got = port_session.ask_batch(reqs, top_k=len(answers))
+    want = jax_session.ask_batch(reqs, top_k=len(answers))
+    assert [g["answer"] for g in got] == [w["answer"] for w in want]
+    np.testing.assert_allclose(_logprobs(got, answers),
+                               _logprobs(want, answers), rtol=0,
+                               atol=LOGPROB_TOL)

@@ -221,16 +221,25 @@ def test_resume_loads_best_model_params(runs):
 
 
 def test_unported_knobs_raise(runs, tmp_path):
-    # checkpoint_every_steps, compute_rouge, trace_dir and tokenizer_file
-    # are ported (tests/test_torch_resume.py, test_torch_rouge_native.py,
-    # test_torch_session_checkpoint.py); these two are not yet
-    for dataset_kw in ({"reduced_decode": 2}, {"dataset_type": "okvqa"}):
-        raw = _raw_config(runs["root"], runs["kw"], tmp_path)
-        raw["dataset_kwargs"].update(dataset_kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VQATrainer(_port_model(len(runs["answers"])),
-                       Config.from_json(_write(tmp_path, raw)),
-                       runs["answers"])
+    # the trainer refuses no knob any more: reduced_decode and num_workers
+    # reach its collates (tests/test_torch_reduced_decode.py) and OK-VQA its
+    # datasets (tests/test_torch_okvqa.py); the one refusal left is a mesh,
+    # in the entry point
+    raw = _raw_config(runs["root"], runs["kw"], tmp_path)
+    raw["dataset_kwargs"].update(reduced_decode=2, num_workers=2)
+    path = _write(tmp_path, raw)
+    trainer = VQATrainer(_port_model(len(runs["answers"])),
+                         Config.from_json(path), runs["answers"])
+    for loader in (trainer.train_dataloader, trainer.test_dataloader):
+        assert (loader.collate_fn.reduced_decode,
+                loader.collate_fn.num_workers) == (2, 2)
+    ignored = next(line for line in _log(tmp_path).splitlines()
+                   if "Not implemented by the port" in line)
+    assert "num_workers" not in ignored
+    from t5_resnet_vqa_torch.train.__main__ import parse_args
+    for mesh in (["--data-parallel", "2"], ["--model-parallel", "2"]):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            parse_args(["--config", path, *mesh])
 
 
 def test_trainer_raises_without_a_card(runs, tmp_path, monkeypatch):
