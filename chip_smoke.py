@@ -192,6 +192,43 @@ Phases (each raises on failure; nothing is caught):
               of the same optimizer stepped on CPU copies of the same
               parameters, gradients and state); then step times of each
               beside AdamW's, in turns.
+15. mesh    -- the (data, model) mesh (``t5_resnet_vqa_torch/parallel``)
+              at full width with gloo on CUDA tensors, 4 ranks in processes
+              of their own, every one on this card (NCCL refuses two ranks
+              on one card): the CNN family (B=64, bf16 compute with fp32
+              master weights, dropout 0, AdamW as configured, the cache
+              off) takes 3 steps on one device and at dp=2 x tp=1,
+              dp=1 x tp=2 and dp=2 x tp=2 (and in fp32 on one device and
+              at 2x2): per rank 6 attention launches at H/tp heads and 7
+              bottleneck launches at B/dp rows per step, losses and the L2
+              of the update within the bf16 train gate (5e-2) and, in fp32,
+              1e-4 relative of the one-device run's (and in fp32 the
+              parameters within 1e-2 of the update, L2). The steps are set
+              up by the trainer's own ``setup_train_step``. At production
+              dropout, on one device and at 2x2, the same steps give each
+              rank's peak device memory of a step. ``VQATrainer`` itself
+              trains one epoch (2 steps, 1 eval batch, dropout 0, the cache
+              on) without a mesh and at 2x2 (``mesh=``): every rank
+              launches per cache build, step and eval forward what the
+              mesh-free trainer does, its cache pinned on the host; losses
+              within the bf16 train gate; rank 0 logs the mesh and the
+              host cache, gathers 64 validation predictions and writes
+              ``best-model.pt`` and the recovery pair (gathered whole). A
+              one-device ``from_checkpoint`` session serves that pair:
+              log-probs within 1e-3 of a 2x2 mesh session's over the same
+              weights on the same 64 requests, top-1 equal. The ViT
+              family's sessions at tp=2 and dp=2 against one
+              device (``ask_batch`` on 64 requests: 12 attention launches
+              (and no bottleneck launch) per forward per rank, at S=197
+              and H=6 under tp=2; log-probs
+              within the serve gates; fp32 greedy ``generate_batch`` tokens
+              equal). With two cards or more, dp=2 also runs with NCCL.
+              The times in its line (step ms per rank, ``ask_batch`` ms)
+              are gloo's on one card, not a scaling figure. The kernel
+              phase holds attention at the mesh's head counts too: H=4,
+              D=96, Sk=16 and 64 (SGA at tp=2), H=6, S=197 and 213, D=64
+              (ViT and RoBERTa at tp=2); the kernels line gives their
+              per-launch numbers under ``tp2_*``.
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
@@ -207,7 +244,11 @@ step and per cache rebuild, ``serve_from_checkpoint_launches`` over the
 64 requests served from a checkpoint, ``heatmap_launches`` per heatmap
 forward of each family, ``http_launches`` over the 65 forwards behind the
 HTTP requests, ``okvqa_train_epoch_launches`` over the OK-VQA epoch, the
-cache's build included; ``frcnn_launches`` and
+cache's build included; ``mesh_train_launches_per_step_per_rank``,
+``mesh_trainer_launches_per_step_per_rank`` and
+``mesh_vit_launches_per_forward_per_rank`` those one rank of the mesh
+phase counted per 2x2 step, per step of the 2x2 trainer and per tp=2 ViT
+forward; ``frcnn_launches`` and
 ``cross_launches`` over each family's three served forwards,
 ``frcnn_train_epoch_launches`` / ``cross_train_epoch_launches`` and
 ``frcnn_train_launches_per_step`` / ``cross_train_launches_per_step``
@@ -250,11 +291,11 @@ CHUNKS = 3
 # timed rounds per configuration of the serving phases (20 and 10 before
 # the ViT family's training phase joined the run, 10 and 6 before the
 # Faster-RCNN and cross-attention phases did, 6 for the CNN family before
-# the heatmap, HTTP, OK-VQA and optimizer phases did; lowered to keep the
-# whole run under 800 s)
-ROUNDS = 4             # ask_batch, CNN family
-VIT_ROUNDS = 4         # ask_batch and generate_batch, ViT family
-FAMILY_ROUNDS = 4      # ask_batch, Faster-RCNN and cross-attention families
+# the heatmap, HTTP, OK-VQA and optimizer phases did, 4 before the mesh
+# phase did; lowered to keep the whole run under 900 s)
+ROUNDS = 3             # ask_batch, CNN family
+VIT_ROUNDS = 3         # ask_batch and generate_batch, ViT family
+FAMILY_ROUNDS = 3      # ask_batch, Faster-RCNN and cross-attention families
 GEN_TOKENS = 5         # generate_batch: answer length and beams
 GEN_BEAMS = 3
 BEAM_SCORE_TOL = 1e-4  # fp32 beam scores, kernels on against off
@@ -273,9 +314,10 @@ BF16_STEPS = 5         # kernels on against off, dropout 0
 FP32_STEPS = 3
 # timed train steps per configuration, in turns (20 before the
 # Faster-RCNN and cross-attention phases joined the run, 12 and 6 before
-# the heatmap, HTTP, OK-VQA and optimizer phases did)
-TRAIN_ROUNDS = 8
-FAMILY_TRAIN_ROUNDS = 4   # the same, Faster-RCNN and cross-attention
+# the heatmap, HTTP, OK-VQA and optimizer phases did, 8 and 4 before the
+# mesh phase did)
+TRAIN_ROUNDS = 6
+FAMILY_TRAIN_ROUNDS = 3   # the same, Faster-RCNN and cross-attention
 # profiled train steps per configuration: the device's idle share and the
 # step's busy time and launches (10 before the ViT family's training phase
 # joined the run, 3 before the heatmap, HTTP, OK-VQA and optimizer phases
@@ -392,9 +434,18 @@ ATTENTION_CASES = [       # name, B, H, Sq, Sk, D, launches per forward
     ("sga_sk64", BATCH, 8, 16, 64, 96, 1),
     ("vit_s197", BATCH, 12, 197, 197, 64, 0),
     ("cross_s213", BATCH, 12, CROSS_SEQ, CROSS_SEQ, 64, 0),
+    # the same attentions on a mesh rank at tp=2 (dp=1): half the heads
+    ("sga_sk16_tp2", BATCH, 4, 16, 16, 96, 0),
+    ("sga_sk64_tp2", BATCH, 4, 16, 64, 96, 0),
+    ("vit_s197_tp2", BATCH, 6, 197, 197, 64, 0),
+    ("cross_s213_tp2", BATCH, 6, CROSS_SEQ, CROSS_SEQ, 64, 0),
 ]
 # the kernel phase's per-launch numbers kept for the kernels line, by case
-PER_LAUNCH_CASES = {"vit_s197": "vit", "cross_s213": "cross"}
+PER_LAUNCH_CASES = {"vit_s197": "vit", "cross_s213": "cross",
+                    "sga_sk16_tp2": "tp2_sga_sk16",
+                    "sga_sk64_tp2": "tp2_sga_sk64",
+                    "vit_s197_tp2": "tp2_vit_s197",
+                    "cross_s213_tp2": "tp2_cross_s213"}
 
 
 def phase_attention(torch):
@@ -3141,6 +3192,535 @@ def phase_optimizers(torch, card, model, batch, cfg):
     return results
 
 
+# ------------------------------------------------------------------ mesh
+
+MESH_RANKS = 4
+MESH_STEPS = 3
+MESH_SHAPES = [(2, 1), (1, 2), (2, 2)]
+MESH_FP32_SHAPES = [(2, 2)]        # the fp32 gate's shape
+MESH_SERVE_SHAPES = [(1, 2), (2, 1)]
+# production dropout: the step's peak memory per rank on one device and 2x2
+MESH_DROPOUT_SHAPES = [(1, 1), (2, 2)]
+MESH_TRAINER_SHAPE = (2, 2)
+MESH_TRAINER_BATCHES = (2, 1)      # train and test batches of its epoch
+# the update's L2 on a mesh against one device, relative: bf16 the train
+# gate (LOGPROB_TOL), fp32 sums in another order
+MESH_UPDATE_TOL = {"bfloat16": LOGPROB_TOL["bfloat16"], "float32": 1e-4}
+# a collective or a rendezvous may wait this long for the ranks that run a
+# smaller mesh before it (one process per rank, all on one card)
+MESH_TIMEOUT_S = 900
+
+
+def _shape_name(shape):
+    return f"{shape[0]}x{shape[1]}"
+
+
+def mesh_train(torch, cfg, batches, mesh, dtype, dropout=False):
+    """MESH_STEPS steps of the CNN family at full width on ``mesh`` through
+    the trainer's own setup (``setup_train_step``: the model split over the
+    model axis, its frozen parameters out of the gradient, DDP over the
+    data axis, the clip and AdamW over the full tensors), each rank on its
+    rows of the global batches; ``dropout`` at the production rates.
+    Returns (model, record); the record holds the device memory this
+    rank's process allocated in the last step above what it held before
+    (``last_step_peak_mib``)."""
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.parallel import sharding as shd
+    from t5_resnet_vqa_torch.parallel.tensor_parallel import tp_dim
+    from t5_resnet_vqa_torch.train.trainer import (
+        prepare_model,
+        setup_train_step,
+    )
+
+    torch.manual_seed(0)
+    model = prepare_model(_build_model(torch, torch.float32, True,
+                                       dropout=dropout), mesh.device, dtype)
+    _, _, _, step = setup_train_step(model, cfg, MESH_STEPS, dtype, mesh)
+    model.train()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    rows = mesh.batch_rows(BATCH)
+    losses, counts, times = [], [], []
+    for i, batch in enumerate(batches):
+        local = {k: v[rows] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        if i == len(batches) - 1:
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            held = torch.cuda.memory_allocated(mesh.device)
+        t0 = time.perf_counter()
+        a0, k0 = A.launches, K.launches
+        loss, _ = step(local)
+        loss = float(shd.mean_over_data(loss.detach().float(), mesh))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append([A.launches - a0, K.launches - k0])
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated(mesh.device) - held
+    named = dict(model.named_parameters())
+    split = [float((named[n] - p0).double().square().sum())
+             for n, p0 in before.items() if tp_dim(named[n]) is not None]
+    whole = [float((named[n] - p0).double().square().sum())
+             for n, p0 in before.items() if tp_dim(named[n]) is None]
+    sq = sum(whole)
+    if split:
+        sq += float(shd.all_reduce_sum(
+            torch.tensor(sum(split), dtype=torch.float64,
+                         device=mesh.device), mesh.tp_group))
+    q_rows = model.sga_modules[0].mhatt1.linear_q.weight.shape[0]
+    record = {"losses": losses, "launches_per_step": counts,
+              "step_ms": times, "update_l2": sq ** 0.5,
+              "last_step_peak_mib": peak / 2 ** 20,
+              "sga_heads": q_rows // 96, "rows": rows.stop - rows.start}
+    return model, record
+
+
+def _full_trainable(torch, model, mesh):
+    """The trainable parameters of a mesh rank's model, gathered whole."""
+    from t5_resnet_vqa_torch.parallel import sharding as shd
+    return shd.gather_state_dict(
+        {n: p.detach() for n, p in model.named_parameters()
+         if p.requires_grad}, mesh)
+
+
+def mesh_trainer(torch, rank, out_dir):
+    """One epoch of ``VQATrainer`` (the CNN family at full width, bf16,
+    dropout 0, the cache on; MESH_TRAINER_BATCHES) without a mesh on rank 0,
+    then on the 2x2 mesh on every rank, its steps and eval forwards
+    counted. The mesh trainer runs its own mesh branches: the loaders give
+    each rank its rows, the cache stays on the host in pinned memory, the
+    losses are averaged and the predictions gathered over the data axis,
+    rank 0 scores and writes ``best-model.pt`` and the recovery pair
+    (gathered whole). Then a 2x2 session over its gathered weights serves
+    the test requests in fp32. Returns this rank's records (rank 0 also the
+    mesh-free trainer's and the served log-probs)."""
+    from t5_resnet_vqa_torch.eval import VQAInferenceSession
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.parallel import make_mesh
+    from t5_resnet_vqa_torch.parallel import sharding as shd
+    from t5_resnet_vqa_torch.train import VQATrainer
+
+    answers, train_ds, test_ds, load_images = data = train_data(
+        *MESH_TRAINER_BATCHES)
+
+    def run(mesh, sub):
+        cfg = parity_config(train_config(os.path.join(out_dir, sub)))
+        calls = {"train": [], "eval": []}
+
+        def counted(kind, fn):
+            def step(batch):
+                a0, k0 = A.launches, K.launches
+                out = fn(batch)
+                calls[kind].append([A.launches - a0, K.launches - k0,
+                                    out[0]])
+                return out
+            return step
+
+        with seeded_images(load_images):
+            a0, k0 = A.launches, K.launches
+            trainer = VQATrainer(
+                _build_model(torch, torch.float32, True, dropout=False),
+                cfg, answers, train_ds, test_ds, mesh=mesh)
+            build = [A.launches - a0, K.launches - k0]
+            trainer.train_step = counted("train", trainer.train_step)
+            trainer.eval_step = counted("eval", trainer.eval_step)
+            t0 = time.perf_counter()
+            trainer.train()
+            epoch_s = time.perf_counter() - t0
+        losses = torch.stack([c[2] for c in calls["train"]]).float()
+        if mesh is not None:
+            losses = shd.mean_over_data(losses, mesh)
+        cache = trainer._feature_cache
+        rec = {"launches_cache_build": build,
+               "launches_per_train_step": [c[:2] for c in calls["train"]],
+               "launches_per_eval_forward": [c[:2] for c in calls["eval"]],
+               "losses": losses.cpu().tolist(), "epoch_s": epoch_s,
+               "cache_pinned": cache is not None and
+               cache.features.is_pinned()}
+        if rank == 0:
+            with open(trainer.logger.log_path) as f:
+                rec["log"] = f.read()
+            with open(os.path.join(cfg.trainer.output_dir,
+                                   "validation_predictions",
+                                   "0_validation_predictions.json")) as f:
+                rec["validation_predictions"] = len(json.load(f))
+        return trainer, rec
+
+    out = {"cache_chunks": cache_chunks(data)}
+    if rank == 0:
+        trainer, out["one"] = run(None, "one")
+        del trainer
+        torch.cuda.empty_cache()
+    mesh = make_mesh(*MESH_TRAINER_SHAPE)
+    trainer, out["mesh"] = run(mesh, "mesh")
+    full = trainer._full_state_dict(trainer.model)
+    del trainer
+    torch.cuda.empty_cache()
+    session = VQAInferenceSession(
+        _build_model(torch, torch.float32, True, dropout=False), full,
+        answers, "cnn", batch_size=BATCH, image_size=IMAGE, device=DEVICE,
+        mesh=mesh)
+    session.collate.load_images = load_images
+    requests = [(test_ds[i].image_path, test_ds[i].question.question_text)
+                for i in range(BATCH)]
+    log_probs = session._gather(session._dispatch_chunk(requests))
+    if rank == 0:
+        out["served_log_probs"] = log_probs.float().cpu().numpy()
+    del session, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_vit(torch, rank):
+    """The ViT family's sessions at full width on one device and on the
+    MESH_SERVE_SHAPES meshes, in bf16 and fp32: ``ask_batch`` on BATCH
+    requests ((attention, bottleneck) launches counted), the gathered
+    log-probs and
+    greedy ``generate_batch`` tokens."""
+    from t5_resnet_vqa_torch.eval import VQAInferenceSession
+    from t5_resnet_vqa_torch.ops import attention as A
+    from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(5)
+    answers = [f"answer{i:03d}" for i in range(ANSWERS)]
+    requests = [(f"mesh_vit_{i}.png", f"what is on the table number {i}")
+                for i in range(BATCH)]
+    images = {path: rng.integers(0, 256, (VIT_IMAGE, VIT_IMAGE, 3),
+                                 dtype=np.uint8) for path, _ in requests}
+
+    def load_images(paths):
+        return np.stack([images[p] for p in paths])
+
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        for shape in [(1, 1)] + MESH_SERVE_SHAPES:
+            mesh = make_mesh(*shape)
+            if not mesh.member:
+                continue
+            session = VQAInferenceSession(
+                _build_vit_model(torch, torch.float32, True), None, answers,
+                "vit", batch_size=BATCH, device=DEVICE, mesh=mesh,
+                compute_dtype=getattr(torch, dtype_name))
+            session.collate.load_images = load_images
+            session.ask_batch(requests)           # allocator, cuDNN
+            torch.cuda.synchronize()
+            a0, k0 = A.launches, K.launches
+            t0 = time.perf_counter()
+            results = session.ask_batch(requests)
+            ask_ms = (time.perf_counter() - t0) * 1e3
+            launches = [A.launches - a0, K.launches - k0]
+            log_probs = session._gather(session._dispatch_chunk(requests))
+            tokens = _padded_tokens(_generate(session, requests, 1))
+            top1 = [r["answer"] for r in results]
+            out[f"{dtype_name}_{_shape_name(shape)}"] = {
+                "launches_per_forward": launches, "ask_ms": ask_ms,
+                "vit_heads": session.model.vision_model.encoder.layer[0]
+                .attention.attention.query.weight.shape[0] // 64,
+                "log_probs": log_probs.float().cpu().numpy()
+                if rank == 0 else None,
+                "tokens": tokens if rank == 0 else None,
+                "top1": top1 if rank == 0 else None}
+            del session
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, out_dir, nccl=False):
+    """One rank of the mesh phase (``parallel.launch.spawn`` runs it in a
+    process of its own). The CNN family's train steps on one device and on
+    each mesh (bf16; fp32 on MESH_FP32_SHAPES; at production dropout on
+    MESH_DROPOUT_SHAPES), ``mesh_trainer``, then the ViT family's serving;
+    with ``nccl`` only the bf16 steps at (1, 1) and (2, 1). Rank 0 keeps
+    the one-device run's parameters to hold each mesh's against them."""
+    import torch
+    from t5_resnet_vqa_torch.parallel import make_mesh
+    from t5_resnet_vqa_torch.train.trainer import _device_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = train_data(MESH_STEPS, 1)
+    cfg = parity_config(train_config(out_dir))
+    batches = [_device_batch(r) for r in raw_batches(
+        torch, cfg, data, "cnn", MESH_STEPS)]
+    out = {"train": {}, "rank": rank}
+    runs = ([("bfloat16", [(1, 1), (2, 1)], False)] if nccl else
+            [("bfloat16", [(1, 1)] + MESH_SHAPES, False),
+             ("float32", [(1, 1)] + MESH_FP32_SHAPES, False),
+             ("bfloat16", MESH_DROPOUT_SHAPES, True)])
+    for dtype_name, shapes, dropout in runs:
+        dtype = getattr(torch, dtype_name)
+        one = None
+        for shape in shapes:
+            mesh = make_mesh(*shape)
+            if not mesh.member:
+                continue
+            model, rec = mesh_train(torch, cfg, batches, mesh, dtype,
+                                    dropout)
+            key = f"{dtype_name}_{_shape_name(shape)}"
+            if dropout:
+                out["train"][f"{key}_dropout"] = rec
+                del model
+                torch.cuda.empty_cache()
+                continue
+            full = _full_trainable(torch, model, mesh)
+            if shape == (1, 1):
+                one = full
+            elif rank == 0:
+                num = sum(float((full[n] - one[n]).double().square().sum())
+                          for n in one)
+                rec["param_diff_l2"] = num ** 0.5
+            out["train"][key] = rec
+            del model, full
+            torch.cuda.empty_cache()
+        del one
+    if not nccl:
+        out["trainer"] = mesh_trainer(torch, rank, out_dir)
+        out["serve_vit"] = mesh_serve_vit(torch, rank)
+    return out
+
+
+def _check_mesh_train(results, one_key, shapes, dtype_name):
+    """Every rank's steps on each mesh against rank 0's one-device run:
+    launches (6 attention at H/tp, 7 bottleneck per step at B/dp), losses
+    and the update's L2 within the gates."""
+    one = results[0]["train"][one_key]
+    if one["launches_per_step"] != [[6, 7]] * MESH_STEPS:
+        raise AssertionError(f"{one_key}: launches "
+                             f"{one['launches_per_step']} per step")
+    line = {}
+    for shape in shapes:
+        key = f"{dtype_name}_{_shape_name(shape)}"
+        dp, tp = shape
+        ranks = [r["train"][key] for r in results if key in r["train"]]
+        if len(ranks) != dp * tp:
+            raise AssertionError(f"{key}: {len(ranks)} ranks ran")
+        for rec in ranks:
+            if rec["launches_per_step"] != one["launches_per_step"] or \
+                    rec["sga_heads"] != 8 // tp or \
+                    rec["rows"] != BATCH // dp:
+                raise AssertionError(
+                    f"{key}: launches {rec['launches_per_step']} per step, "
+                    f"{rec['sga_heads']} SGA heads, {rec['rows']} rows")
+        rec = ranks[0]
+        if dtype_name == "bfloat16":
+            loss_diff = max(abs(a - b) for a, b in
+                            zip(rec["losses"], one["losses"]))
+        else:
+            loss_diff = max(abs(a - b) / abs(b) for a, b in
+                            zip(rec["losses"], one["losses"]))
+        update_diff = abs(rec["update_l2"] - one["update_l2"]) / \
+            one["update_l2"]
+        # the parameters' difference over the update: fp32 gates it as the
+        # train phase's kernels on/off (UPDATE_TOL); a wrong split moves a
+        # whole share of the update, which loss and update norm at random
+        # weights barely show
+        ratio = rec["param_diff_l2"] / one["update_l2"]
+        tol = TRAIN_LOSS_TOL[dtype_name]
+        if not (loss_diff <= tol and
+                update_diff <= MESH_UPDATE_TOL[dtype_name] and
+                (dtype_name != "float32" or ratio <= UPDATE_TOL)):
+            raise AssertionError(
+                f"{key}: losses {rec['losses']} against {one['losses']} "
+                f"(differ by {loss_diff} > {tol}?), update L2 "
+                f"{rec['update_l2']} against {one['update_l2']} (differ by "
+                f"{update_diff} > {MESH_UPDATE_TOL[dtype_name]}?), "
+                f"parameters differ by {ratio} of the update")
+        line[key] = {"losses": rec["losses"], "loss_diff": loss_diff,
+                     "loss_tol": tol, "update_l2": rec["update_l2"],
+                     "update_l2_diff": update_diff,
+                     "update_tol": MESH_UPDATE_TOL[dtype_name],
+                     "param_diff_over_update": ratio,
+                     "step_ms": rec["step_ms"],
+                     "last_step_peak_mib": rec["last_step_peak_mib"],
+                     "launches_per_step_per_rank":
+                         rec["launches_per_step"][0]}
+    line[one_key] = {"losses": one["losses"], "update_l2": one["update_l2"],
+                     "step_ms": one["step_ms"],
+                     "last_step_peak_mib": one["last_step_peak_mib"]}
+    return line
+
+
+def _check_mesh_dropout(results):
+    """The production-dropout steps (MESH_DROPOUT_SHAPES): finite losses and
+    per rank the one-device run's launches; each rank's last-step peak
+    memory for the line. On the card the mesh's masks are not the
+    one-device run's, so the losses are not compared."""
+    line = {}
+    one = None
+    for shape in MESH_DROPOUT_SHAPES:
+        key = f"bfloat16_{_shape_name(shape)}_dropout"
+        ranks = [r["train"][key] for r in results if key in r["train"]]
+        one = one or ranks[0]
+        if len(ranks) != shape[0] * shape[1] or any(
+                not np.isfinite(rec["losses"]).all() or
+                rec["launches_per_step"] != one["launches_per_step"]
+                for rec in ranks):
+            raise AssertionError(f"{key}: {ranks}")
+        line[key] = {"losses": ranks[0]["losses"],
+                     "step_ms": ranks[0]["step_ms"],
+                     "launches_per_step_per_rank":
+                         ranks[0]["launches_per_step"][0],
+                     "last_step_peak_mib_per_rank":
+                         [rec["last_step_peak_mib"] for rec in ranks]}
+    return line
+
+
+def _check_mesh_trainer(results):
+    """``mesh_trainer``: every rank of the 2x2 trainer launched per cache
+    build, train step and eval forward what the mesh-free trainer did, its
+    cache pinned on the host; the losses (averaged over the data axis)
+    within the bf16 train gate of the mesh-free trainer's; rank 0's log and
+    gathered validation predictions."""
+    one = results[0]["trainer"]["one"]
+    chunks = results[0]["trainer"]["cache_chunks"]
+    want = {"launches_cache_build": [0, 7 * chunks],
+            "launches_per_train_step": [[6, 0]] * MESH_TRAINER_BATCHES[0],
+            "launches_per_eval_forward": [[6, 0]] * MESH_TRAINER_BATCHES[1]}
+    ranks = [r["trainer"]["mesh"] for r in results]
+    for rec in [one] + ranks:
+        got = {k: rec[k] for k in want}
+        if got != want:
+            raise AssertionError(f"trainer launches {got}, expected {want}")
+    if one["cache_pinned"] or not all(r["cache_pinned"] for r in ranks):
+        raise AssertionError("the mesh trainer's cache is not pinned on the "
+                             "host, or the mesh-free one's is")
+    mesh = ranks[0]
+    diff = max(abs(a - b) for a, b in zip(mesh["losses"], one["losses"]))
+    tol = TRAIN_LOSS_TOL["bfloat16"]
+    if not diff <= tol:
+        raise AssertionError(f"the 2x2 trainer's losses {mesh['losses']} "
+                             f"against {one['losses']}: {diff} > {tol}")
+    shape = dict(zip(("data", "model"), MESH_TRAINER_SHAPE))
+    for text in (f"Mesh: {shape}", "on host (mesh run)",
+                 "Average WUPS Score", "Saving new best-model"):
+        if text not in mesh["log"]:
+            raise AssertionError(f"the 2x2 trainer's log lacks {text!r}")
+    if {one["validation_predictions"], mesh["validation_predictions"]} != \
+            {MESH_TRAINER_BATCHES[1] * BATCH}:
+        raise AssertionError("validation predictions: "
+                             f"{one['validation_predictions']} and "
+                             f"{mesh['validation_predictions']}")
+    cache_line = next(ln for ln in mesh["log"].splitlines()
+                      if "Frozen-feature cache:" in ln)
+    return {"shape": _shape_name(MESH_TRAINER_SHAPE),
+            "train_steps": MESH_TRAINER_BATCHES[0],
+            "eval_forwards": MESH_TRAINER_BATCHES[1],
+            "losses": mesh["losses"], "one_device_losses": one["losses"],
+            "loss_diff": diff, "loss_tol": tol,
+            **{k: mesh[k] for k in want},
+            "cache_log_line": cache_line,
+            "epoch_s": mesh["epoch_s"], "one_device_epoch_s": one["epoch_s"]}
+
+
+def phase_mesh(torch, card):
+    """The (data, model) mesh at full width with gloo on CUDA tensors, every
+    rank on this card (see the module docstring). Returns the kernels'
+    launches per step and per forward of one rank."""
+    import tempfile
+
+    from t5_resnet_vqa_torch.eval import VQAInferenceSession
+    from t5_resnet_vqa_torch.parallel import launch
+
+    out_dir = tempfile.mkdtemp(prefix="mesh_phase_")
+    t0 = time.perf_counter()
+    results = launch.spawn(mesh_rank, MESH_RANKS, (out_dir,),
+                           devices=[DEVICE + ":0"] * MESH_RANKS,
+                           backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    line = {"phase": "mesh", "card": card,
+            "backend": "gloo, every rank on cuda:0 (NCCL refuses two ranks "
+                       "on one card)",
+            "note": "times with gloo on one card are not a scaling figure",
+            "ranks": MESH_RANKS, "steps": MESH_STEPS, "batch": BATCH,
+            "spawn_and_run_s": spawn_s}
+    line["train"] = _check_mesh_train(results, "bfloat16_1x1", MESH_SHAPES,
+                                      "bfloat16")
+    line["train"].update(_check_mesh_train(results, "float32_1x1",
+                                           MESH_FP32_SHAPES, "float32"))
+    line["train_dropout"] = _check_mesh_dropout(results)
+    line["trainer"] = _check_mesh_trainer(results)
+
+    # the 2x2 trainer's pair served by a one-device session from the
+    # checkpoint
+    answers, _, test_ds, load_images = train_data(*MESH_TRAINER_BATCHES)
+    requests = [(test_ds[i].image_path, test_ds[i].question.question_text)
+                for i in range(BATCH)]
+    cfg = train_config(os.path.join(out_dir, "mesh"))
+    cfg.model.compute_dtype = "float32"
+    with seeded_images(load_images):
+        t0 = time.perf_counter()
+        session = VQAInferenceSession.from_checkpoint(cfg, batch_size=BATCH,
+                                                      device=DEVICE)
+        restore_s = time.perf_counter() - t0
+        served = session._dispatch_chunk(requests).float().cpu().numpy()
+    mesh_lp = results[0]["trainer"]["served_log_probs"]
+    err = float(np.abs(served - mesh_lp).max())
+    top1 = float((served.argmax(-1) == mesh_lp.argmax(-1)).mean())
+    if not (err <= LOGPROB_TOL["float32"] and top1 == 1.0):
+        raise AssertionError(f"the 2x2 pair served on one device: log-probs "
+                             f"differ by {err}, top-1 agreement {top1}")
+    line["served_from_2x2_pair"] = {"max_abs_logprob_diff": err,
+                                    "tol": LOGPROB_TOL["float32"],
+                                    "top1_agreement": top1,
+                                    "from_checkpoint_s": restore_s}
+    del session
+
+    # the ViT family's serving on the meshes against one device
+    vit = {}
+    for dtype_name in ("bfloat16", "float32"):
+        one = results[0]["serve_vit"][f"{dtype_name}_1x1"]
+        for shape in MESH_SERVE_SHAPES:
+            key = f"{dtype_name}_{_shape_name(shape)}"
+            ranks = [r["serve_vit"][key] for r in results
+                     if key in r["serve_vit"]]
+            if len(ranks) != shape[0] * shape[1] or any(
+                    r["launches_per_forward"] != [12, 0] or
+                    r["vit_heads"] != 12 // shape[1] for r in ranks):
+                raise AssertionError(f"ViT {key}: {len(ranks)} ranks, "
+                                     f"launches and heads {ranks}")
+            rec = ranks[0]
+            err = float(np.abs(rec["log_probs"] - one["log_probs"]).max())
+            same = float((rec["tokens"] == one["tokens"]).all(-1).mean())
+            top1 = float(np.mean([a == b for a, b in
+                                  zip(rec["top1"], one["top1"])]))
+            if not err <= LOGPROB_TOL[dtype_name] or (
+                    dtype_name == "float32" and same != 1.0):
+                raise AssertionError(
+                    f"ViT {key}: log-probs differ by {err} (tol "
+                    f"{LOGPROB_TOL[dtype_name]}), greedy tokens equal for "
+                    f"{same} of the requests")
+            vit[key] = {"max_abs_logprob_diff": err,
+                        "tol": LOGPROB_TOL[dtype_name],
+                        "greedy_tokens_equal": same, "top1_agreement": top1,
+                        "ask_ms": rec["ask_ms"], "one_device_ask_ms":
+                            one["ask_ms"],
+                        "launches_per_forward_per_rank":
+                            rec["launches_per_forward"]}
+    line["serve_vit"] = vit
+
+    if torch.cuda.device_count() >= 2:
+        nccl = launch.spawn(mesh_rank, 2, (out_dir, True),
+                            devices=[f"{DEVICE}:0", f"{DEVICE}:1"],
+                            backend="nccl", timeout_s=MESH_TIMEOUT_S)
+        line["nccl"] = _check_mesh_train(nccl, "bfloat16_1x1", [(2, 1)],
+                                         "bfloat16")
+    else:
+        line["nccl"] = "not run: one card"
+    emit(line)
+    names = ("attention", "bottleneck")
+    return {"train_per_step_per_rank": dict(zip(
+                names, results[0]["train"]["bfloat16_2x2"]
+                ["launches_per_step"][0])),
+            "trainer_per_step_per_rank": dict(zip(
+                names, results[0]["trainer"]["mesh"]
+                ["launches_per_train_step"][0])),
+            "vit_per_forward_per_rank": dict(zip(
+                names, results[0]["serve_vit"]["bfloat16_1x2"]
+                ["launches_per_forward"]))}
+
+
 def main() -> int:
     import torch
 
@@ -3179,6 +3759,7 @@ def main() -> int:
     phase_optimizers(torch, card, model, batch, cfg)
     del model, batch
     torch.cuda.empty_cache()
+    mesh = phase_mesh(torch, card)
 
     print(card, flush=True)
 
@@ -3205,7 +3786,13 @@ def main() -> int:
                         "serve_from_checkpoint_launches": served[name],
                         "heatmap_launches": heatmap[name],
                         "http_launches": http[name],
-                        "okvqa_train_epoch_launches": okvqa[name]})
+                        "okvqa_train_epoch_launches": okvqa[name],
+                        "mesh_train_launches_per_step_per_rank":
+                            mesh["train_per_step_per_rank"][name],
+                        "mesh_trainer_launches_per_step_per_rank":
+                            mesh["trainer_per_step_per_rank"][name],
+                        "mesh_vit_launches_per_forward_per_rank":
+                            mesh["vit_per_forward_per_rank"][name]})
         for f in FAMILIES:
             kernels[-1].update({
                 f"{f}_launches": family_launches[f][name],
@@ -3214,6 +3801,9 @@ def main() -> int:
                     family_train[f]["per_step"][name]})
     vit, cross = att["vit"], att["cross"]
     kernels[0].update({f"cross_{k}": v for k, v in cross.items()})
+    for case in ("tp2_sga_sk16", "tp2_sga_sk64", "tp2_vit_s197",
+                 "tp2_cross_s213"):
+        kernels[0].update({f"{case}_{k}": v for k, v in att[case].items()})
     kernels[0].update({"bwd_ms": att["bwd_ms"],
                        "plain_bwd_ms": att["plain_bwd_ms"],
                        "bwd_max_abs_err": att["bwd_max_abs_err"],

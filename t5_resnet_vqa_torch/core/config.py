@@ -7,10 +7,10 @@ every field of the JAX package is kept, with its default, so that
 ``Config.to_dict()`` gives the same dictionary for the same file. Dotted
 overrides (``--set trainer_kwargs.epochs=3``) work as there.
 
-Some fields steer parts of the JAX package that the port has not ported
-yet (the feature cache, the mesh, periodic checkpoints, ROUGE, ...); the
-trainer (``train/trainer.py``) names the ones it ignores in one log line
-and raises on the ones that would change what is computed or written.
+A few fields steer parts of the JAX package that change no number in the
+port (``steps_per_dispatch``, ``fast_dropout_rng``, ``use_pallas``,
+``use_wandb``); the trainer (``train/trainer.py``) names them in one log
+line.
 """
 
 from __future__ import annotations
@@ -207,7 +207,10 @@ class CallbacksConfig:
 
 @dataclass
 class ParallelConfig:
-    """parallel_kwargs group: the JAX package's (data, model) mesh."""
+    """parallel_kwargs group: the JAX package's (data, model) mesh sizes,
+    kept for the file's round trip. As in the JAX package, nothing reads
+    them: the entry points' ``--data-parallel`` / ``--model-parallel`` make
+    the mesh (``parallel/``)."""
     data_axis_size: int = -1             # -1: all remaining devices
     model_axis_size: int = 1
 

@@ -20,16 +20,22 @@ from typing import Any, Dict, Optional
 
 
 class Logger:
-    """stdlib-logging based file+stdout logger."""
+    """stdlib-logging based file+stdout logger. ``enabled=False`` (the ranks
+    of a mesh other than 0) writes nothing anywhere."""
 
-    def __init__(self, output_dir: str, name: str = "t5_resnet_vqa_torch"):
-        os.makedirs(output_dir, exist_ok=True)
+    def __init__(self, output_dir: str, name: str = "t5_resnet_vqa_torch",
+                 enabled: bool = True):
         ts = time.strftime("%Y-%m-%d_%H-%M-%S")
         self.log_path = os.path.join(output_dir, f"training_log_{ts}.txt")
 
         self._logger = _logging.getLogger(f"{name}.{ts}.{id(self)}")
         self._logger.setLevel(_logging.INFO)
         self._logger.propagate = False
+        self._file_handler = None
+        if not enabled:
+            self._logger.addHandler(_logging.NullHandler())
+            return
+        os.makedirs(output_dir, exist_ok=True)
 
         fh = _logging.FileHandler(self.log_path)
         fh.setFormatter(_logging.Formatter("%(asctime)s %(message)s"))
@@ -42,6 +48,8 @@ class Logger:
     def sync(self) -> None:
         """Flush and fsync the log file (once per epoch), so that the log is
         at most one epoch behind the checkpoints."""
+        if self._file_handler is None:
+            return
         stream = self._file_handler.stream
         try:
             stream.flush()
@@ -66,19 +74,26 @@ class Logger:
 
 class ExperimentTracker:
     """Metrics records in ``<output_dir>/metrics.jsonl``: init(config) /
-    log(dict) / finish(), each record flushed and fsynced."""
+    log(dict) / finish(), each record flushed and fsynced; nothing with
+    ``enabled=False``."""
 
     def __init__(self, output_dir: str, project: str,
-                 config: Optional[Dict[str, Any]] = None):
-        os.makedirs(output_dir, exist_ok=True)
+                 config: Optional[Dict[str, Any]] = None,
+                 enabled: bool = True):
         self.project = project
         self.path = os.path.join(output_dir, "metrics.jsonl")
-        self._fh = open(self.path, "a")
         self._step = 0
+        self._fh = None
+        if not enabled:
+            return
+        os.makedirs(output_dir, exist_ok=True)
+        self._fh = open(self.path, "a")
         if config is not None:
             self._emit({"_event": "init", "project": project, "config": config})
 
     def _emit(self, record: Dict[str, Any]) -> None:
+        if self._fh is None:
+            return
         record = dict(record)
         record.setdefault("_time", time.time())
         self._fh.write(json.dumps(record, default=str) + "\n")
@@ -91,4 +106,5 @@ class ExperimentTracker:
 
     def finish(self) -> None:
         self._emit({"_event": "finish"})
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()

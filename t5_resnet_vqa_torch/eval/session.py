@@ -21,6 +21,14 @@ Both launch every chunk's work before they read any result back, so chunk
 k+1's host preprocessing overlaps chunk k's device work (CUDA launches are
 asynchronous; the copies to the host at the end are the only
 synchronisations).
+
+With a ``mesh`` (``parallel/``) the session runs SPMD on every rank: the
+model is split over the model axis, every rank collates the same chunk,
+runs its rows of it (the fixed batch must divide over the data axis) and
+gathers the log-probs or the generated tokens over the data axis, so every
+rank decodes the same answers. For a server, rank 0 wraps its session in
+``MeshLeader``, which hands each call to the other ranks, and they run
+``follow`` until the leader's ``close()``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..data.collate import DaquarCnnCollate, DaquarVitCollate
 from ..data.daquar import Annotation, Question, Sample
 from ..models import generation
+from ..parallel import sharding as shd
 from .predict import convert_logits_to_predictions_topk
 
 CNN_FAMILY = "cnn"
@@ -52,7 +61,9 @@ class VQAInferenceSession:
     which raises without a card; the CPU only when named) and put in
     ``eval()`` mode. With a ``compute_dtype`` other than fp32 the forward
     runs under autocast to it and a frozen tower is held in it, as in the
-    trainer.
+    trainer. With a ``mesh`` the model (full weights) is split over it and
+    placed on the mesh's device, and ``batch_size`` must divide over its
+    data axis.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -64,12 +75,19 @@ class VQAInferenceSession:
                  uint8_wire: bool = True, reduced_decode: int = 0,
                  num_workers: int = 0,
                  compute_dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh: Optional[shd.Mesh] = None):
         if family not in (CNN_FAMILY, VIT_FAMILY, CROSS_FAMILY):
             raise NotImplementedError(
                 f"the port serves the {CNN_FAMILY!r}, {VIT_FAMILY!r} and "
                 f"{CROSS_FAMILY!r} families, not {family!r}")
-        self.device = resolve_device(device)
+        if mesh is not None and batch_size % mesh.data:
+            raise ValueError(
+                f"serving batch_size {batch_size} must divide evenly over "
+                f"the mesh data axis ({mesh.data} ways)")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.family = family
         self.answer_spaces = list(answer_spaces)
         self.batch_size = int(batch_size)
@@ -89,17 +107,22 @@ class VQAInferenceSession:
             model.load_state_dict(state_dict, strict=True)
         from ..train.trainer import prepare_model
         self.model = prepare_model(model, self.device, compute_dtype).eval()
+        if mesh is not None:
+            from ..parallel.tensor_parallel import shard_model_
+            shard_model_(self.model, mesh)
 
     @classmethod
     def from_checkpoint(cls, config, batch_size: int = 8, tokenizer=None,
-                        device: DeviceLike = None) -> "VQAInferenceSession":
+                        device: DeviceLike = None,
+                        mesh: Optional[shd.Mesh] = None
+                        ) -> "VQAInferenceSession":
         """Serve ``best-model.pt`` and the answer space of
         ``model_ckpt_info.json`` from ``config.trainer.output_dir``, with
         the config's model, image path (``reduced_decode`` and
         ``num_workers`` included), tokenizer and compute dtype.
         ``device=None`` is the config's ``trainer.device`` (the card unless
-        it says "cpu"). The JAX session's ``mesh`` has no counterpart yet
-        (ROADMAP.md, modules item 11)."""
+        it says "cpu"); with a ``mesh``, the mesh's device, every rank
+        loading the full checkpoint and keeping its share."""
         from ..data import get_tokenizer
         from ..train import factory
         from ..train.callbacks import CheckpointManager
@@ -114,6 +137,8 @@ class VQAInferenceSession:
                 f"first; the answer space is part of the checkpoint "
                 f"contract)")
         answer_spaces = info["answer_spaces"]
+        if mesh is not None:
+            device = mesh.device
         device = (trainer_device(config.trainer.device) if device is None
                   else resolve_device(device))
         model, family = factory.build_model(config.model, len(answer_spaces),
@@ -128,7 +153,8 @@ class VQAInferenceSession:
             lang_model=dk.language_model_tokenizer, tokenizer=tokenizer,
             uint8_wire=dk.uint8_wire_images, reduced_decode=dk.reduced_decode,
             num_workers=dk.num_workers,
-            compute_dtype=config_compute_dtype(config), device=device)
+            compute_dtype=config_compute_dtype(config), device=device,
+            mesh=mesh)
         # the trainer's resume guard: another id layout would scramble
         # every question's token ids
         saved = info.get("tokenizer_scheme")
@@ -157,6 +183,7 @@ class VQAInferenceSession:
             pending.append((self._dispatch_chunk(chunk), len(chunk)))
         out: List[dict] = []
         for log_probs, n in pending:
+            log_probs = self._gather(log_probs)
             out.extend(self._decode(log_probs[:n].cpu().numpy(), top_k))
         return out
 
@@ -210,9 +237,9 @@ class VQAInferenceSession:
             pending.append((tokens, scores, len(chunk)))
         out: List[dict] = []
         for tokens, scores, n in pending:
-            tokens = tokens[:n].cpu().numpy()
+            tokens = self._gather(tokens)[:n].cpu().numpy()
             if scores is not None:
-                scores = scores[:n].cpu().numpy()
+                scores = self._gather(scores)[:n].cpu().numpy()
             for i in range(n):
                 ids = [int(t) for t in tokens[i] if int(t) != 0]
                 rec = {"answer_text": tokenizer.decode(ids), "token_ids": ids}
@@ -239,7 +266,14 @@ class VQAInferenceSession:
             batch = {k: np.concatenate(
                 [v, np.repeat(v[:1], self.batch_size - n, axis=0)])
                 for k, v in batch.items()}
+        if self.mesh is not None:       # this rank's rows
+            rows = self.mesh.batch_rows(self.batch_size)
+            batch = {k: v[rows] for k, v in batch.items()}
         return batch
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """A chunk's per-row results on every rank (a mesh's data axis)."""
+        return t if self.mesh is None else shd.gather_rows(t, self.mesh)
 
     def _to_device(self, batch: Mapping[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
@@ -269,3 +303,58 @@ class VQAInferenceSession:
             "top_answers": [self.answer_spaces[int(j)] for j in order[i]],
             "top_probs": [float(p) for p in probs[i]],
         } for i in range(len(log_probs))]
+
+
+class MeshLeader:
+    """Rank 0's session behind a server: each ``ask``/``ask_batch``/
+    ``generate``/``generate_batch`` is handed to the other ranks (running
+    ``follow``) before rank 0 runs it; ``close()`` lets them go. Other
+    attributes are the session's."""
+
+    def __init__(self, session: VQAInferenceSession):
+        self.session = session
+
+    def __getattr__(self, name):
+        return getattr(self.session, name)
+
+    def _lead(self, method: str, *args, **kwargs):
+        shd.broadcast_object((method, args, kwargs), self.session.mesh)
+        return getattr(self.session, method)(*args, **kwargs)
+
+    def ask_batch(self, requests, top_k: int = 1) -> List[dict]:
+        return self._lead("ask_batch", list(requests), top_k=top_k)
+
+    def ask(self, image: str, question: str, top_k: int = 1) -> dict:
+        return self.ask_batch([(image, question)], top_k=top_k)[0]
+
+    def generate_batch(self, requests, num_beams: int = 1,
+                       max_answer_length: int = 5) -> List[dict]:
+        return self._lead("generate_batch", list(requests),
+                          num_beams=num_beams,
+                          max_answer_length=max_answer_length)
+
+    def generate(self, image: str, question: str, num_beams: int = 1,
+                 max_answer_length: int = 5) -> dict:
+        return self.generate_batch([(image, question)], num_beams=num_beams,
+                                   max_answer_length=max_answer_length)[0]
+
+    def close(self) -> None:
+        shd.broadcast_object(None, self.session.mesh)
+
+
+def follow(session: VQAInferenceSession) -> int:
+    """A rank other than 0: run the leader's calls until its ``close()``.
+    A call the leader's session refuses (a ``ValueError`` raised before
+    any collective, as ``generate_batch`` on a classifier) is refused here
+    too, and the loop goes on. Returns the number of calls run."""
+    calls = 0
+    while True:
+        command = shd.broadcast_object(None, session.mesh)
+        if command is None:
+            return calls
+        method, args, kwargs = command
+        try:
+            getattr(session, method)(*args, **kwargs)
+        except ValueError:
+            pass
+        calls += 1

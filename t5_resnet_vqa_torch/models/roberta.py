@@ -140,13 +140,13 @@ class RobertaLayer(nn.Module):
         att = self.attention.self
 
         def heads(linear):
-            return linear(x).reshape(B, S, cfg.num_heads,
+            return linear(x).reshape(B, S, -1,
                                      cfg.head_dim).transpose(1, 2)
 
         ctx = dot_product_attention(heads(att.query), heads(att.key),
                                     heads(att.value),
                                     use_kernel=self.use_kernel)
-        ctx = ctx.transpose(1, 2).reshape(B, S, cfg.hidden_size)
+        ctx = ctx.transpose(1, 2).reshape(B, S, -1)
         x = self.attention.output(ctx, x)
         h = F.gelu(self.intermediate.dense(x))
         return self.output(h, x)

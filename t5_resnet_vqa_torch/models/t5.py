@@ -26,6 +26,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _NEG_INF = -1e9
@@ -128,9 +129,12 @@ class T5Attention(nn.Module):
             nn.Embedding(config.relative_attention_num_buckets,
                          config.num_heads)
             if has_relative_attention_bias else None)
+        # a mesh's model axis (parallel.shard_model_): this rank's heads
+        self.tp = None
 
     def compute_bias(self, q_len: int, k_len: int) -> torch.Tensor:
-        """[1, heads, q_len, k_len] fp32 relative position bias."""
+        """[1, heads, q_len, k_len] fp32 relative position bias; under tensor
+        parallelism this rank's heads, read from the replicated table."""
         device = self.relative_attention_bias.weight.device
         ctx = torch.arange(q_len, device=device)[:, None]
         mem = torch.arange(k_len, device=device)[None, :]
@@ -138,7 +142,11 @@ class T5Attention(nn.Module):
             mem - ctx, self.bidirectional,
             self.config.relative_attention_num_buckets,
             self.config.relative_attention_max_distance)
-        values = self.relative_attention_bias(buckets).float()   # [q, k, h]
+        table = self.relative_attention_bias.weight
+        if self.tp is not None:
+            from ..parallel.tensor_parallel import slice_replicated
+            table = slice_replicated(table, 1, self.tp)
+        values = F.embedding(buckets, table).float()             # [q, k, h]
         return values.permute(2, 0, 1)[None]
 
     def forward(self, hidden_states: torch.Tensor,
@@ -155,7 +163,7 @@ class T5Attention(nn.Module):
         Sk = kv.shape[1]
 
         def heads(proj, x):
-            return proj(x).reshape(B, -1, cfg.num_heads,
+            return proj(x).reshape(B, x.shape[1], -1,
                                    cfg.d_kv).transpose(1, 2)
 
         qh = heads(self.q, hidden_states)
@@ -167,14 +175,14 @@ class T5Attention(nn.Module):
                 if self.relative_attention_bias is not None:
                     position_bias = self.compute_bias(Sq, Sk)
                 else:
-                    position_bias = torch.zeros((1, cfg.num_heads, Sq, Sk),
+                    position_bias = torch.zeros((1, qh.shape[1], Sq, Sk),
                                                 device=scores.device)
                 if mask_bias is not None:
                     position_bias = position_bias + mask_bias
             att = torch.softmax(scores + position_bias, dim=-1).to(qh.dtype)
             att = self.dropout(att)
             out = torch.matmul(att.float(), vh.float()).to(qh.dtype)
-        out = out.transpose(1, 2).reshape(B, Sq, cfg.num_heads * cfg.d_kv)
+        out = out.transpose(1, 2).reshape(B, Sq, -1)
         return self.o(out), position_bias
 
 

@@ -93,7 +93,7 @@ class ViTSelfAttention(nn.Module):
         B, S, _ = x.shape
 
         def heads(linear):
-            return linear(x).reshape(B, S, cfg.num_heads,
+            return linear(x).reshape(B, S, -1,
                                      cfg.head_dim).transpose(1, 2)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
@@ -106,7 +106,7 @@ class ViTSelfAttention(nn.Module):
                                    v.float()).to(q.dtype)
         else:
             ctx = dot_product_attention(q, k, v, use_kernel=self.use_kernel)
-        return ctx.transpose(1, 2).reshape(B, S, cfg.hidden_size), att
+        return ctx.transpose(1, 2).reshape(B, S, -1), att
 
 
 class ViTAttention(nn.Module):

@@ -46,13 +46,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
-                        dropout_p: float = 0.0) -> torch.Tensor:
+                        dropout_p: float = 0.0,
+                        dropout: Optional[torch.nn.Module] = None
+                        ) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v over [B, H, Sq, D] / [B, H, Sk, D].
 
     Scores and softmax in fp32; the probabilities are cast to the query
     dtype before P.V, which accumulates in fp32; the output has q's dtype
     (``ops/layers.py:dot_product_attention`` of the JAX package). ``mask``
-    marks masked positions with True and fills them with -1e9. Autocast is
+    marks masked positions with True and fills them with -1e9; ``dropout``,
+    where given, drops the probabilities in place of ``F.dropout``. Autocast is
     off inside, so that the fp32 products stay fp32 under a bf16 autocast.
     """
     d = q.shape[-1]
@@ -63,7 +66,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scores = scores.masked_fill(mask, -1e9)
         att = torch.softmax(scores, dim=-1).to(q.dtype)
         if dropout_p > 0.0:
-            att = torch.nn.functional.dropout(att, dropout_p)
+            att = (torch.nn.functional.dropout(att, dropout_p)
+                   if dropout is None else dropout(att))
         return torch.matmul(att.float(), v.float()).to(q.dtype)
 
 

@@ -41,16 +41,21 @@ class AttentionConfig:
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None, *,
                           dropout_p: float = 0.0,
-                          use_kernel: bool = False) -> torch.Tensor:
+                          use_kernel: bool = False,
+                          dropout: Optional[nn.Module] = None
+                          ) -> torch.Tensor:
     """Scaled dot-product attention over [B, H, Sq, D] / [B, H, Sk, D];
-    ``mask`` marks masked positions with True."""
+    ``mask`` marks masked positions with True. ``dropout``, where given,
+    drops the probabilities in place of ``F.dropout`` (a mesh's heads)."""
     if use_kernel and mask is None and dropout_p == 0.0:
         return fused_attention(q, k, v)
-    return attention_reference(q, k, v, mask, dropout_p)
+    return attention_reference(q, k, v, mask, dropout_p, dropout)
 
 
 class MultiHeadAttention(nn.Module):
-    """MHAtt, called as (v, k, q)."""
+    """MHAtt, called as (v, k, q). The head count is the projections' width
+    over the head size: ``parallel.shard_model_`` leaves a rank its heads,
+    and a sharded ``head_dropout``."""
 
     def __init__(self, config: AttentionConfig = AttentionConfig(),
                  use_kernel: bool = False):
@@ -62,6 +67,7 @@ class MultiHeadAttention(nn.Module):
         self.linear_k = nn.Linear(h, h)
         self.linear_q = nn.Linear(h, h)
         self.linear_merge = nn.Linear(h, h)
+        self.head_dropout: Optional[nn.Module] = None
 
     def forward(self, v: torch.Tensor, k: torch.Tensor, q: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -69,15 +75,15 @@ class MultiHeadAttention(nn.Module):
         B, Sq = q.shape[0], q.shape[1]
 
         def heads(x, linear):
-            return linear(x).reshape(B, -1, cfg.num_heads,
+            return linear(x).reshape(B, x.shape[1], -1,
                                      cfg.head_dim).transpose(1, 2)
 
         dropout_p = cfg.dropout_rate if self.training else 0.0
         atted = dot_product_attention(
             heads(q, self.linear_q), heads(k, self.linear_k),
             heads(v, self.linear_v), mask, dropout_p=dropout_p,
-            use_kernel=self.use_kernel)
-        atted = atted.transpose(1, 2).reshape(B, Sq, cfg.hidden_size)
+            use_kernel=self.use_kernel, dropout=self.head_dropout)
+        atted = atted.transpose(1, 2).reshape(B, Sq, -1)
         return self.linear_merge(atted)
 
 

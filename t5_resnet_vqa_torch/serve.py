@@ -13,19 +13,32 @@ Restores ``best-model.pt`` and the answer space of ``model_ckpt_info.json``
 (``VQAInferenceSession.from_checkpoint``) and serves /healthz, /v1/ask,
 /v1/ask_batch and, for the ViT encoder-decoder family, /v1/generate (the
 protocol: ``eval/http_server.py``). It runs on the card unless
-``--set trainer_kwargs.device=cpu`` names the CPU. One device only:
-``--data-parallel`` and ``--model-parallel`` other than 1 raise.
+``--set trainer_kwargs.device=cpu`` names the CPU.
+
+``--data-parallel DP --model-parallel TP`` (both 1 by default) serve on a
+(data, model) mesh of DP x TP ranks, started as the training entry point
+starts them (``parallel/launch.py``; under ``torchrun`` the processes join
+the group they find): the batch is split over the data axis (it must
+divide by DP) and the model over the model axis. Rank 0 binds the port and
+hands each request batch to the other ranks (``eval/session.py``,
+``MeshLeader``), which follow until it closes.
 """
 
 import argparse
+import signal
+from typing import Optional, Tuple
 
 from .core.config import Config
 from .eval.http_server import VQAHTTPServer
-from .eval.session import VQAInferenceSession
+from .eval.session import MeshLeader, VQAInferenceSession, follow
+from .parallel import launch
 
 
-def build_server(argv=None) -> VQAHTTPServer:
-    """Parse the arguments, restore the session and bind the server."""
+def parse_args(argv=None) -> Tuple[argparse.Namespace, Config,
+                                   Optional[Tuple[int, int]]]:
+    """(arguments, config, (data, model) sizes of the mesh or None). A
+    mesh that does not fit the visible cards or a batch that does not
+    divide over its data axis is refused before anything loads."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--config", default="vit_daquar_config.json",
@@ -43,18 +56,29 @@ def build_server(argv=None) -> VQAHTTPServer:
                         "required for image_path on non-loopback --host "
                         "(remote clients may always send image_b64)")
     p.add_argument("--data-parallel", type=int, default=1, metavar="DP",
-                   help="data-axis size of a mesh (not ported: must be 1)")
+                   help="shard the serving batch DP ways over a device "
+                        "mesh (batch-size must divide)")
     p.add_argument("--model-parallel", type=int, default=1, metavar="TP",
-                   help="model-axis size of a mesh (not ported: must be 1)")
+                   help="tensor-parallel degree on the mesh model axis "
+                        "(same Megatron specs as training)")
     args = p.parse_args(argv)
-    if args.data_parallel != 1 or args.model_parallel != 1:
-        raise NotImplementedError(
-            "the port serves on one device; a mesh comes with ROADMAP.md, "
-            "modules item 11")
-
     cfg = Config.from_json(args.config, overrides=args.set)
-    session = VQAInferenceSession.from_checkpoint(cfg,
-                                                  batch_size=args.batch_size)
+    if args.data_parallel * args.model_parallel == 1:
+        return args, cfg, None
+    device_type = "cpu" if cfg.trainer.device == "cpu" else "cuda"
+    try:
+        dp = launch.resolve_mesh_size(args.data_parallel,
+                                      args.model_parallel, device_type)
+    except ValueError as e:
+        p.error(str(e))
+    if args.batch_size % dp:
+        p.error(f"--batch-size {args.batch_size} must be divisible by "
+                f"--data-parallel {dp} (each data shard serves batch/dp "
+                f"pairs)")
+    return args, cfg, (dp, args.model_parallel)
+
+
+def make_server(args: argparse.Namespace, session) -> VQAHTTPServer:
     server = VQAHTTPServer(session, host=args.host, port=args.port,
                            default_top_k=args.top_k, logger=print,
                            image_root=args.image_root)
@@ -65,12 +89,66 @@ def build_server(argv=None) -> VQAHTTPServer:
     return server
 
 
-def main(argv=None) -> None:
-    server = build_server(argv)
+def build_server(argv=None) -> VQAHTTPServer:
+    """Parse the arguments, restore the session and bind the server (one
+    device; ``main`` starts the ranks of a mesh)."""
+    args, cfg, shape = parse_args(argv)
+    if shape is not None:
+        raise ValueError("a mesh is served by main(), which starts one "
+                         "process per rank")
+    session = VQAInferenceSession.from_checkpoint(cfg,
+                                                  batch_size=args.batch_size)
+    return make_server(args, session)
+
+
+def serve_rank(rank: int, args: argparse.Namespace, cfg: Config,
+               shape: Tuple[int, int], until=None) -> Optional[int]:
+    """One rank of a served mesh. Rank 0 serves until interrupted, or, with
+    ``until``, runs ``until(server)`` on the bound server and returns its
+    result; the other ranks follow it and return the number of calls."""
+    from .parallel import make_mesh
+    mesh = make_mesh(*shape)
+    session = VQAInferenceSession.from_checkpoint(
+        cfg, batch_size=args.batch_size, mesh=mesh)
+    if not mesh.is_writer:
+        # an interrupt stops rank 0, whose close() releases this loop
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        return follow(session)
+    leader = MeshLeader(session)
+    print(f"serving mesh: {mesh.shape}", flush=True)
+    server = make_server(args, leader)
     try:
+        if until is not None:
+            server.start()
+            return until(server)
         server.serve_forever()
     except KeyboardInterrupt:
+        pass
+    finally:
         server.close()
+        leader.close()
+    return None
+
+
+def main(argv=None) -> None:
+    args, cfg, shape = parse_args(argv)
+    if shape is None:
+        server = make_server(args, VQAInferenceSession.from_checkpoint(
+            cfg, batch_size=args.batch_size))
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            server.close()
+        return
+    device_type = "cpu" if cfg.trainer.device == "cpu" else "cuda"
+    # the ranks' processes find the function by its module's own name, not
+    # as __main__'s
+    from t5_resnet_vqa_torch.serve import serve_rank as rank_fn
+    try:
+        launch.launch_mesh(rank_fn, (args, cfg, shape), shape[0], shape[1],
+                           device_type)
+    except KeyboardInterrupt:   # the ranks have closed and been joined
+        pass
 
 
 if __name__ == "__main__":

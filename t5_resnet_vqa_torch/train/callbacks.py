@@ -436,6 +436,14 @@ class Callbacks:
         self.threshold = 0.0
         # id layout of the tokenizer the weights were trained with
         self.tokenizer_scheme: Optional[str] = None
+        # under a mesh the trainer sets these: the full states from a
+        # rank's shards (collectives every rank joins), and whether this
+        # rank writes (rank 0 alone)
+        self.state_fn: Callable[[nn.Module], Dict[str, torch.Tensor]] = \
+            checkpoint_state_dict
+        self.optimizer_state_fn: Callable[[Any], Dict[str, Any]] = \
+            lambda optimizer: optimizer.state_dict()
+        self.writer = True
 
     def better_score(self, score: float) -> bool:
         if self.mode == "max":
@@ -461,8 +469,10 @@ class Callbacks:
             if on_complete is not None:
                 on_complete()
 
-        self.ckpt.save_tree("best-model", checkpoint_state_dict(model),
-                            background=True, on_complete=write_metadata)
+        state = self.state_fn(model)
+        if self.writer:
+            self.ckpt.save_tree("best-model", state, background=True,
+                                on_complete=write_metadata)
 
     def exit_training(self, model: nn.Module) -> None:
         self.ckpt.flush()              # land the in-flight background saves
@@ -472,7 +482,9 @@ class Callbacks:
             f"{self.save_final_model} ")
         if self.save_final_model:
             self.logger.log_message("Saving model ...")
-            self.ckpt.save_tree("final-model", checkpoint_state_dict(model))
+            state = self.state_fn(model)
+            if self.writer:
+                self.ckpt.save_tree("final-model", state)
             self.logger.log_message("Done.")
 
 
@@ -520,8 +532,10 @@ class EarlyStopping(Callbacks):
         after the pair has landed; a superseded save's never runs."""
         self.logger.log_new_line()
         self.logger.log_message("Saving Epoch Checkpoint")
-        self.ckpt.save_pair(checkpoint_state_dict(model), {
-            "epoch": epoch, "global_step": global_step,
-            "optimizer": optimizer.state_dict(),
-            "scheduler": scheduler.state_dict()},
-            background=True, on_complete=on_complete)
+        params = self.state_fn(model)
+        state = {"epoch": epoch, "global_step": global_step,
+                 "optimizer": self.optimizer_state_fn(optimizer),
+                 "scheduler": scheduler.state_dict()}
+        if self.writer:
+            self.ckpt.save_pair(params, state, background=True,
+                                on_complete=on_complete)

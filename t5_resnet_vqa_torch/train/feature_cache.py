@@ -24,15 +24,22 @@ The training math is unchanged: the cached features are the tower's
 features, and the labels are still drawn anew per epoch in the collate.
 The trainer turns the cache off, with a log line, for models without
 ``compute_vision_features``, fine-tuned towers, towers with stochastic
-regularization and rows without an image path. The JAX module's
-``host_mode`` (a host-side cache for mesh runs) has no counterpart: the port
-runs on one device.
+regularization and rows without an image path.
+
+Under a mesh (``host_resident``, JAX's ``host_mode``) the cache stays on
+the host, in pinned memory when the ranks run on cards: every rank builds
+it (the tower is replicated, or split over the model axis, and runs in
+step on every rank), and each rank gathers the rows of its own share of a
+batch and copies them to its device. Where JAX's one process holds one
+copy, every rank process holds its own, so the cap counts the copies on
+this host (``host_ranks``): the cache stays off where they would pin more
+than the cap together.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,11 +51,14 @@ DEFAULT_MAX_CACHE_BYTES = 6 * 1024 ** 3
 
 
 class FrozenFeatureCache:
-    """Per-image tower features on the device, and the path -> slot map."""
+    """Per-image tower features, on the device or (a mesh run) on the host
+    for ``device``, and the path -> slot map."""
 
-    def __init__(self, features: torch.Tensor, path_to_slot: Dict[str, int]):
+    def __init__(self, features: torch.Tensor, path_to_slot: Dict[str, int],
+                 device: Optional[torch.device] = None):
         self.features = features
         self.path_to_slot = path_to_slot
+        self.device = features.device if device is None else device
 
     @property
     def nbytes(self) -> int:
@@ -62,10 +72,14 @@ class FrozenFeatureCache:
 
     def gather(self, img_idx: np.ndarray) -> torch.Tensor:
         """[B] slots -> [B, *feat] features on the device (enqueued, not
-        waited for)."""
+        waited for); a host cache gathers on the host and copies the rows
+        through pinned memory."""
         idx = torch.from_numpy(np.asarray(img_idx, np.int64))
-        return torch.index_select(self.features, 0,
+        rows = torch.index_select(self.features, 0,
                                   idx.to(self.features.device))
+        if rows.device == self.device:
+            return rows
+        return rows.pin_memory().to(self.device, non_blocking=True)
 
 
 def collect_image_slots(datasets: Sequence):
@@ -88,6 +102,8 @@ def build_feature_cache(
     batch_size: int = 64,
     max_bytes: int = DEFAULT_MAX_CACHE_BYTES,
     compute_dtype: torch.dtype = torch.float32,
+    host_resident: bool = False,
+    host_ranks: int = 1,
 ):
     """Compute the tower's features for every unique image.
 
@@ -97,7 +113,10 @@ def build_feature_cache(
     ``compute_dtype``, under the train step's autocast. Returns
     ``((cache, row_maps, build_seconds), None)``, with one row -> slot
     array per dataset, or ``(None, reason)`` when the datasets hold no
-    image or the cache would exceed ``max_bytes``.
+    image or the cache would exceed ``max_bytes``. ``host_resident`` keeps
+    the features in host memory (pinned for a card) for a mesh run;
+    ``host_ranks`` processes on this host each hold such a copy, and the
+    cap is on their sum.
     """
     t0 = time.time()
     paths, row_maps = collect_image_slots(datasets)
@@ -119,17 +138,22 @@ def build_feature_cache(
             feats = model.compute_vision_features(images)
             if features is None:
                 per_image = feats[0].numel() * feats.element_size()
-                if per_image * n > max_bytes:
+                if per_image * n * host_ranks > max_bytes:
+                    copies = (f" x {host_ranks} ranks on this host"
+                              if host_ranks > 1 else "")
                     return None, (f"estimated size {per_image * n / 1e9:.1f} "
-                                  f"GB exceeds the {max_bytes / 1e9:.0f} GB "
-                                  f"cap")
+                                  f"GB{copies} exceeds the "
+                                  f"{max_bytes / 1e9:.0f} GB cap")
                 # filled chunk by chunk: no second copy at the peak
-                features = torch.empty((n, *feats.shape[1:]),
-                                       dtype=feats.dtype, device=device)
+                features = torch.empty(
+                    (n, *feats.shape[1:]), dtype=feats.dtype,
+                    device="cpu" if host_resident else device,
+                    pin_memory=host_resident and device.type == "cuda")
             features[start:start + len(chunk)] = feats[:len(chunk)]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    cache = FrozenFeatureCache(features, {p: i for i, p in enumerate(paths)})
+    cache = FrozenFeatureCache(features, {p: i for i, p in enumerate(paths)},
+                               device)
     return (cache, row_maps, time.time() - t0), None
 
 

@@ -52,17 +52,30 @@ norms and Adafactor's factoring are per tensor, which equals optax's per
 leaf because the weight bridge maps each JAX leaf to one tensor, only
 transposed; the factored estimate is symmetric in its two dimensions, so a
 [out, in] weight or an OIHW convolution factors as its JAX kernel does.
+
+Under a mesh's model axis (``tp``, ``parallel/tensor_parallel.py``) a
+parameter may be a slice of its full tensor. Every reduction that optax
+takes over the full leaf stays one over the full tensor: Lamb's ||p|| and
+||update||, Adafactor's choice of factored dimensions (from the full
+shape: the local one may pick others), its row and column means and the
+update's and the parameter's RMS are summed over the model group and
+divided by the full sizes. AdamW, Adam and SGD are elementwise.
+``state_split_dim`` says how a state tensor follows its parameter's split,
+for checkpoints in the single-device layout.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.optim import Optimizer
 
 from ..core.config import LRSchedulerConfig, OptimizerConfig
+from ..parallel.sharding import all_reduce_sum
+from ..parallel.tensor_parallel import TensorParallel, tp_dim
 
 # top-level module name -> LR group (the reference trainer's grouping)
 DEFAULT_GROUP_MAP: Dict[str, str] = {
@@ -148,9 +161,11 @@ class Lamb(Optimizer):
     """``optax.lamb(lr, weight_decay=wd)`` (see the module docstring)."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999),
-                 eps: float = 1e-6, weight_decay: float = 0.0):
+                 eps: float = 1e-6, weight_decay: float = 0.0,
+                 tp: Optional[TensorParallel] = None):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay))
+        self.tp = tp
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -176,7 +191,8 @@ class Lamb(Optimizer):
                     update.add_(p, alpha=group["weight_decay"])
                 # square-sum-root: the CPU's norm() of a large fp32 tensor
                 # is off by ~1e-3 (24.7M elements), its sum is not
-                p_norm, u_norm = _l2(p), _l2(update)
+                full = _Full(p, self.tp)
+                p_norm, u_norm = full.l2(p), full.l2(update)
                 ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                     torch.ones_like(p_norm), p_norm / u_norm)
                 p.sub_(group["lr"] * ratio * update)
@@ -184,6 +200,41 @@ class Lamb(Optimizer):
 
 def _l2(x: torch.Tensor) -> torch.Tensor:
     return x.square().sum().sqrt()
+
+
+class _Full:
+    """Reductions over the full tensor behind ``p``, which a mesh's model
+    axis may have split (``tp_dim``); without a split, the tensor's own."""
+
+    def __init__(self, p: torch.Tensor, tp: Optional[TensorParallel]):
+        self.dim = tp_dim(p) if tp is not None else None
+        self.tp = tp
+        shape = list(p.shape)
+        if self.dim is not None:
+            shape[self.dim] *= tp.size
+        self.shape = tuple(shape)
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(x, self.tp.group)
+
+    def l2(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dim is None:
+            return _l2(x)
+        return self._sum(x.square().sum()).sqrt()
+
+    def rms(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dim is None:
+            return _rms(x)
+        n = float(np.prod(self.shape))
+        return (self._sum(x.square().sum()) / n).sqrt()
+
+    def mean(self, x: torch.Tensor, dim: int,
+             split: Optional[int]) -> torch.Tensor:
+        """``x.mean(dim)`` of the full tensor, where ``x``'s dimension
+        ``split`` is the split one (None: ``x`` is whole)."""
+        if split is None or dim != split:
+            return x.mean(dim)
+        return self._sum(x.sum(dim)) / (x.shape[dim] * self.tp.size)
 
 
 def _factored_dims(shape, min_dim_size_to_factor: int):
@@ -207,11 +258,13 @@ class Adafactor(Optimizer):
 
     def __init__(self, params, lr: float, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, clipping_threshold: float = 1.0,
-                 min_scale: float = 1e-3, eps: float = 1e-30):
+                 min_scale: float = 1e-3, eps: float = 1e-30,
+                 tp: Optional[TensorParallel] = None):
         super().__init__(params, dict(
             lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
             decay_rate=decay_rate, clipping_threshold=clipping_threshold,
             min_scale=min_scale, eps=eps))
+        self.tp = tp
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -220,7 +273,8 @@ class Adafactor(Optimizer):
                 if p.grad is None:
                     continue
                 g = p.grad
-                dims = _factored_dims(p.shape,
+                full = _Full(p, self.tp)
+                dims = _factored_dims(full.shape,
                                       group["min_dim_size_to_factor"])
                 state = self.state[p]
                 if not state:
@@ -240,19 +294,26 @@ class Adafactor(Optimizer):
                     update = g * v.pow(-0.5)
                 else:
                     d1, d0 = dims
+                    s = full.dim
                     v_row, v_col = state["v_row"], state["v_col"]
-                    v_row.mul_(decay).add_(g_sq.mean(d0), alpha=1 - decay)
-                    v_col.mul_(decay).add_(g_sq.mean(d1), alpha=1 - decay)
-                    row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1,
-                                          keepdim=True)
+                    v_row.mul_(decay).add_(full.mean(g_sq, d0, s),
+                                           alpha=1 - decay)
+                    v_col.mul_(decay).add_(full.mean(g_sq, d1, s),
+                                           alpha=1 - decay)
+                    # v_row lacks dimension d0: d1 and the split move down
+                    row_dim = d1 - 1 if d1 > d0 else d1
+                    row_split = (None if s is None or s == d0
+                                 else s - 1 if s > d0 else s)
+                    row_mean = full.mean(v_row, row_dim,
+                                         row_split).unsqueeze(row_dim)
                     row_factor = (v_row / row_mean).pow(-0.5)
                     col_factor = v_col.pow(-0.5)
                     update = (g * row_factor.unsqueeze(d0)
                               * col_factor.unsqueeze(d1))
                 update = update / torch.clamp(
-                    _rms(update) / group["clipping_threshold"], min=1.0)
+                    full.rms(update) / group["clipping_threshold"], min=1.0)
                 update = update * group["lr"]
-                p_rms = _rms(p)
+                p_rms = full.rms(p)
                 update = update * torch.where(
                     p_rms <= group["min_scale"],
                     torch.full_like(p_rms, group["min_scale"]), p_rms)
@@ -261,8 +322,37 @@ class Adafactor(Optimizer):
 
 OPTIMIZER_TYPES = ("AdamW", "Adam", "SGD", "Lamb", "Adafactor")
 
+# state entries shaped as their parameter (AdamW/Adam, SGD, Lamb, an
+# unfactored Adafactor)
+_ELEMENTWISE_STATE = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq",
+                      "momentum_buffer", "v")
 
-def _make_optimizer(opt_type: str, param_groups, kwargs) -> Optimizer:
+
+def state_split_dim(optimizer: Optimizer, p: torch.Tensor, key: str,
+                    tp_size: int) -> Optional[int]:
+    """The dimension on which the state entry ``key`` of ``p`` is split when
+    ``p`` is (``tp_dim``), or None where it is whole: an elementwise entry
+    follows ``p``; Adafactor's ``v_row`` lacks the largest dimension and
+    ``v_col`` the second-largest of the full shape, and each is split where
+    it keeps ``p``'s split dimension."""
+    s = tp_dim(p)
+    if s is None or key == "step":
+        return None
+    if key in _ELEMENTWISE_STATE:
+        return s
+    if key in ("v_row", "v_col"):
+        shape = list(p.shape)
+        shape[s] *= tp_size
+        group = next(g for g in optimizer.param_groups
+                     if any(q is p for q in g["params"]))
+        d1, d0 = _factored_dims(shape, group["min_dim_size_to_factor"])
+        gone = d0 if key == "v_row" else d1
+        return None if s == gone else s - 1 if s > gone else s
+    raise ValueError(f"no split rule for optimizer state {key!r}")
+
+
+def _make_optimizer(opt_type: str, param_groups, kwargs,
+                    tp: Optional[TensorParallel] = None) -> Optimizer:
     """The optimizer of ``opt_type`` with the JAX package's arguments from
     ``optimizer_kwargs.kwargs``."""
     wd = kwargs.get("weight_decay", 0.0)
@@ -276,9 +366,9 @@ def _make_optimizer(opt_type: str, param_groups, kwargs) -> Optimizer:
         return SGD(param_groups, lr=0.0,
                    momentum=kwargs.get("momentum", 0.0))
     if opt_type == "Lamb":
-        return Lamb(param_groups, lr=0.0, weight_decay=wd)
+        return Lamb(param_groups, lr=0.0, weight_decay=wd, tp=tp)
     if opt_type == "Adafactor":
-        return Adafactor(param_groups, lr=0.0)
+        return Adafactor(param_groups, lr=0.0, tp=tp)
     raise ValueError(f"unsupported optimizer type {opt_type!r}")
 
 
@@ -345,12 +435,14 @@ def build_optimizer(
     num_training_steps: int,
     group_map: Optional[Dict[str, str]] = None,
     frozen_modules: Sequence[str] = (),
+    tp: Optional[TensorParallel] = None,
 ):
     """Returns (optimizer, scheduler, schedules_by_group, trainable params).
 
     One param group per LR group that has parameters, in ``GROUPS`` order,
     each named by its ``"group"`` key. ``schedules_by_group`` gives each
-    group's LR at a step, for the step logs."""
+    group's LR at a step, for the step logs. ``tp``: the model axis of a
+    mesh whose ``shard_model_`` split the model."""
     if opt_cfg.type not in OPTIMIZER_TYPES:
         raise ValueError(f"unsupported optimizer type {opt_cfg.type!r}")
     warmup = sched_cfg.resolve_warmup(num_training_steps)
@@ -366,7 +458,7 @@ def build_optimizer(
     param_groups = [{"params": ps, "lr": lrs[g], "group": g}
                     for g, ps in by_group.items() if ps]
     optimizer = _make_optimizer(opt_cfg.type, param_groups,
-                                dict(opt_cfg.kwargs))
+                                dict(opt_cfg.kwargs), tp)
     unit = linear_schedule_with_warmup(1.0, warmup, num_training_steps)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, unit)
     trainable = [p for g in param_groups for p in g["params"]]

@@ -59,6 +59,19 @@ that change nothing in the numbers are named in one startup log line and
 otherwise ignored. As in the JAX package, a resume restores neither the
 shuffle order nor the dropout generator: a resumed epoch does not replay
 an uninterrupted one.
+
+Under a ``mesh`` (``parallel/``; one process per rank, each running this
+trainer in step) the model is split over the model axis
+(``shard_model_``) and wrapped in DDP over the data axis; every rank reads
+the same global batches and takes its rows; the frozen-feature cache stays
+on the host; the clip and the optimizers reduce over the full tensors.
+Losses and predictions are averaged and gathered over the data axis, rank
+0 computes WUPS and ROUGE and alone writes logs, records and checkpoints,
+which hold the gathered full weights and optimizer state in the
+single-device layout (a resume shards them again). Every rank draws the
+dropout masks of the full global batch from one seed and keeps its block
+(``MeshDropout``): the replicas of a model group stay equal, and on the
+CPU a mesh drops what the single-device run drops.
 """
 
 from __future__ import annotations
@@ -88,12 +101,24 @@ from ..data import (
 )
 from ..eval.rouge import compute_rouge_metric, stemming_active
 from ..eval.wups import average_wups, wup_measure, wups_mode
+from ..parallel import sharding as shd
+from ..parallel.tensor_parallel import (
+    TensorParallel,
+    clip_grad_norm_,
+    shard_model_,
+    tp_dim,
+)
 from ..utils import profiling
 from ..utils.time_utils import convert_time_to_readable_format
 from .callbacks import EarlyStopping
 from .factory import CNN_FAMILY, VIT_FAMILY, build_model, model_family
 from .feature_cache import CachedFeatureLoader, build_feature_cache
-from .optimizer import FROZEN_LABEL, build_optimizer, label_params
+from .optimizer import (
+    FROZEN_LABEL,
+    build_optimizer,
+    label_params,
+    state_split_dim,
+)
 
 _EVAL_ONLY_KEYS = ("answers", "questions", "image_fns")
 
@@ -106,8 +131,11 @@ def _device_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _host_labels(batch: Dict[str, Any]) -> np.ndarray:
-    """annotation_ids on the host, without waiting for the device."""
-    labels = batch.get("_host_annotation_ids", batch["annotation_ids"])
+    """annotation_ids on the host, without waiting for the device (a mesh
+    rank's: the whole global batch's)."""
+    labels = batch.get("_batch_annotation_ids",
+                       batch.get("_host_annotation_ids",
+                                 batch["annotation_ids"]))
     if isinstance(labels, torch.Tensor):
         labels = labels.cpu().numpy()
     return np.asarray(labels)
@@ -148,9 +176,12 @@ def _autocast(device: torch.device, compute_dtype: torch.dtype):
 def make_train_step(model: nn.Module, optimizer, scheduler,
                     trainable: List[torch.Tensor],
                     gradient_clipping: Optional[float] = 1.0,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32,
+                    tp: Optional[TensorParallel] = None):
     """One optimizer step on a device batch -> (loss, argmax predictions),
-    both left on the device. The caller puts the model in ``train()``."""
+    both left on the device. The caller puts the model in ``train()``.
+    ``tp``: the model axis of a mesh (the clip's norm is the full
+    tensors')."""
     device = next(model.parameters()).device
 
     def train_step(batch: Dict[str, torch.Tensor]):
@@ -159,12 +190,56 @@ def make_train_step(model: nn.Module, optimizer, scheduler,
             log_probs, loss = model(**batch)
         loss.backward()
         if gradient_clipping:
-            torch.nn.utils.clip_grad_norm_(trainable, gradient_clipping)
+            clip_grad_norm_(trainable, gradient_clipping, tp)
         optimizer.step()
         scheduler.step()
         return loss.detach(), log_probs.detach().argmax(-1)
 
     return train_step
+
+
+def shard_for_training_(model: nn.Module, mesh: shd.Mesh) -> nn.Module:
+    """Split ``model`` over ``mesh`` in place (``shard_model_``) and take its
+    frozen parameters out of the gradient: DDP reduces every parameter that
+    asks for one."""
+    shard_model_(model, mesh)
+    labels = label_params(model, frozen_modules=getattr(
+        model, "frozen_modules", lambda: ())())
+    for name, p in model.named_parameters():
+        if labels[name] == FROZEN_LABEL:
+            p.requires_grad_(False)
+    return model
+
+
+def setup_train_step(model: nn.Module, config: Config,
+                     num_training_steps: int,
+                     compute_dtype: torch.dtype = torch.float32,
+                     mesh: Optional[shd.Mesh] = None):
+    """The optimizer, schedule and train step of ``model`` as the trainer
+    builds them from ``config``. Under a ``mesh`` the model is first split
+    for training (``shard_for_training_``), the clip and the optimizer
+    reduce over the full tensors, and DDP over the data axis wraps the
+    stepped model. Returns (optimizer, scheduler, schedules by group, train
+    step)."""
+    if mesh is not None:
+        shard_for_training_(model, mesh)
+    tp = TensorParallel.of(mesh)
+    optimizer, scheduler, schedules, trainable = build_optimizer(
+        model, config.optimizer, config.lr_scheduler, num_training_steps,
+        frozen_modules=getattr(model, "frozen_modules", lambda: ())(),
+        tp=tp)
+    stepped = model
+    if mesh is not None and mesh.data > 1:
+        from torch.nn.parallel import DistributedDataParallel
+        device = next(model.parameters()).device
+        stepped = DistributedDataParallel(
+            model, process_group=mesh.dp_group,
+            device_ids=[device] if device.type == "cuda" else None,
+            broadcast_buffers=False)
+    step = make_train_step(stepped, optimizer, scheduler, trainable,
+                           config.trainer.gradient_clipping, compute_dtype,
+                           tp)
+    return optimizer, scheduler, schedules, step
 
 
 def make_eval_step(model: nn.Module,
@@ -182,6 +257,37 @@ def make_eval_step(model: nn.Module,
             return per_example, log_probs.argmax(-1)
 
     return eval_step
+
+
+def _map_optimizer_state(optimizer, mesh: shd.Mesh,
+                         state_dict: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``state_dict`` (``optimizer``'s layout) with ``fn(tensor, dim)``
+    applied to every state entry split over the model axis
+    (``state_split_dim``)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {}
+    for i, entries in state_dict["state"].items():
+        state[i] = {}
+        for key, value in entries.items():
+            dim = state_split_dim(optimizer, params[i], key, mesh.model)
+            state[i][key] = value if dim is None else fn(value, dim)
+    return {**state_dict, "state": state}
+
+
+def full_optimizer_state(optimizer, mesh: shd.Mesh) -> Dict[str, Any]:
+    """A mesh rank's optimizer state in the single-device layout, gathered
+    over the model axis (every rank of a model group joins)."""
+    return _map_optimizer_state(
+        optimizer, mesh, optimizer.state_dict(),
+        lambda v, dim: shd.all_gather_cat(v, mesh.tp_group, dim, mesh.model))
+
+
+def shard_optimizer_state(state_dict: Dict[str, Any], optimizer,
+                          mesh: shd.Mesh) -> Dict[str, Any]:
+    """A single-device optimizer state -> this rank's share of it."""
+    return _map_optimizer_state(
+        optimizer, mesh, state_dict,
+        lambda v, dim: shd.shard_tensor(v, dim, mesh))
 
 
 def build_collates(dk: DatasetConfig, answer_spaces: List[str], seed: int,
@@ -209,25 +315,32 @@ class VQATrainer:
 
     def __init__(self, model: nn.Module, config: Config,
                  answer_spaces: List[str], train_dataset=None,
-                 test_dataset=None, tokenizer=None):
+                 test_dataset=None, tokenizer=None,
+                 mesh: Optional[shd.Mesh] = None):
         self.config = config
         self.family = model_family(config.model)
         self.answer_spaces = [a.strip("\n") for a in answer_spaces]
+        if mesh is not None and not mesh.member:
+            raise ValueError("this rank is outside the mesh")
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.is_writer
 
         tk = config.trainer
-        self.device = trainer_device(tk.device)
+        self.device = (mesh.device if mesh is not None
+                       else trainer_device(tk.device))
         self.compute_dtype = config_compute_dtype(config)
         self.model = prepare_model(model, self.device, self.compute_dtype)
         self.epochs = tk.epochs
         self.output_dir = tk.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
-        # dropout draws from torch's generators (all devices)
+        # dropout draws from torch's generators (all devices); every rank of
+        # a mesh seeds them alike and keeps its block of the full masks
         torch.manual_seed(tk.seed)
 
-        self.logger = Logger(self.output_dir)
+        self.logger = Logger(self.output_dir, enabled=self.is_writer)
         self.tracker = ExperimentTracker(
             self.output_dir, project=tk.wandb_project,
-            config=config.to_dict())
+            config=config.to_dict(), enabled=self.is_writer)
         self.logger.log_message(f"WUPS metric mode: {wups_mode()}")
         if tk.compute_rouge:
             # the card's machine has no nltk: say which scorer runs
@@ -238,16 +351,15 @@ class VQATrainer:
 
         self._init_dataloaders(train_dataset, test_dataset, tokenizer)
 
-        frozen = getattr(model, "frozen_modules", lambda: ())()
-        self._labels = label_params(model, frozen_modules=frozen)
-        self._log_param_table()
-
-        # optimizer + schedule: warmup from the total number of steps
+        # optimizer + schedule: warmup from the total number of steps; a
+        # mesh splits the model here (the resume below loads into it)
         self.num_training_steps = max(1, self.total_train_batch * self.epochs)
         (self.optimizer, self.scheduler, self._schedules,
-         trainable) = build_optimizer(
-            model, config.optimizer, config.lr_scheduler,
-            self.num_training_steps, frozen_modules=frozen)
+         self.train_step) = setup_train_step(
+            model, config, self.num_training_steps, self.compute_dtype, mesh)
+        self._labels = label_params(model, frozen_modules=getattr(
+            model, "frozen_modules", lambda: ())())
+        self._log_param_table()
         self.global_step = 0
         self.start_epoch = 0
         self.cur_epoch = 0
@@ -267,6 +379,11 @@ class VQATrainer:
         self.tokenizer_scheme = getattr(
             self.train_dataloader.collate_fn.tokenizer, "scheme", "unknown")
         self.callbacks.tokenizer_scheme = self.tokenizer_scheme
+        if mesh is not None:
+            self.callbacks.state_fn = self._full_state_dict
+            self.callbacks.optimizer_state_fn = \
+                lambda optimizer: full_optimizer_state(optimizer, mesh)
+            self.callbacks.writer = self.is_writer
 
         if tk.load_from_checkpoint:
             self._try_resume()
@@ -278,9 +395,6 @@ class VQATrainer:
             self._setup_feature_cache()
 
         self._log_startup_summary()
-        self.train_step = make_train_step(
-            model, self.optimizer, self.scheduler, trainable,
-            tk.gradient_clipping, self.compute_dtype)
         self.eval_step = make_eval_step(model, self.compute_dtype)
 
     # ------------------------------------------------------------------ init
@@ -328,6 +442,12 @@ class VQATrainer:
         self.test_dataloader = DataLoader(
             test_dataset, test_collate, dk.test_batch_size, shuffle=False,
             drop_remainder=False)
+        if self.mesh is not None:
+            # every rank reads the same batches and keeps its rows
+            self.train_dataloader = shd.ShardedLoader(self.train_dataloader,
+                                                      self.mesh)
+            self.test_dataloader = shd.ShardedLoader(self.test_dataloader,
+                                                     self.mesh)
         self.num_prefetch = dk.num_prefetch_batches
         self.total_train_batch = len(self.train_dataloader)
         self.ten_percent_train_batch = max(
@@ -388,10 +508,14 @@ class VQATrainer:
                     self.test_dataloader.dataset]
         collates = [self.train_dataloader.collate_fn,
                     self.test_dataloader.collate_fn]
+        # a mesh run keeps the cache on the host, one copy per rank process;
+        # each rank copies its rows
+        host_mode = self.mesh is not None
         built, reason = build_feature_cache(
             model, datasets, collates[0].load_images,
             batch_size=min(64, max(1, len(datasets[0]))),
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, host_resident=host_mode,
+            host_ranks=shd.ranks_on_host(self.mesh) if host_mode else 1)
         if built is None:
             self.logger.log_message(f"Frozen-feature cache: off ({reason})")
             return
@@ -403,10 +527,11 @@ class VQATrainer:
                                                    cache, row_test)
         for c in collates:
             c.emit_images = False       # no image decoding in any epoch
+        where = "host (mesh run)" if host_mode else cache.features.device
         self.logger.log_message(
             f"Frozen-feature cache: {cache.features.shape[0]} images, "
             f"{cache.nbytes / 1e6:.0f} MB {cache.features.dtype} on "
-            f"{cache.features.device}, built in {secs:.1f}s; tower + image "
+            f"{where}, built in {secs:.1f}s; tower + image "
             f"preprocessing skipped for all epochs")
 
     def _try_resume(self):
@@ -439,8 +564,10 @@ class VQATrainer:
         paired = ck.exists("checkpoint-model")
         params_name = "checkpoint-model" if paired else "best-model"
         if ck.exists(params_name):
-            self.model.load_state_dict(ck.restore_tree(params_name),
-                                       strict=True)
+            params = ck.restore_tree(params_name)
+            if self.mesh is not None:
+                params = shd.shard_state_dict(params, self.mesh)
+            self.model.load_state_dict(params, strict=True)
             self.logger.log_line()
             self.logger.log_message(
                 "Loaded params from checkpoint-model" if paired
@@ -458,7 +585,11 @@ class VQATrainer:
             # the JAX chain is rebuilt around its restored state
             hyper = [{k: v for k, v in g.items() if k != "params"}
                      for g in self.optimizer.param_groups]
-            self.optimizer.load_state_dict(state["optimizer"])
+            optimizer_state = state["optimizer"]
+            if self.mesh is not None:
+                optimizer_state = shard_optimizer_state(
+                    optimizer_state, self.optimizer, self.mesh)
+            self.optimizer.load_state_dict(optimizer_state)
             self.scheduler.load_state_dict(state["scheduler"])
             self.scheduler.base_lrs = [h["initial_lr"] for h in hyper]
             for group, h in zip(self.optimizer.param_groups, hyper):
@@ -491,9 +622,19 @@ class VQATrainer:
                     f"Resume point is fresh: epoch {self.start_epoch} "
                     f"matches the last completed epoch")
 
+    # ------------------------------------------------------------------ mesh
+
+    def _full_state_dict(self, model: nn.Module) -> Dict[str, torch.Tensor]:
+        """The checkpoint state dict of the full model, gathered over the
+        model axis (every rank of a model group joins)."""
+        from .callbacks import checkpoint_state_dict
+        return shd.gather_state_dict(checkpoint_state_dict(model), self.mesh)
+
     # --------------------------------------------------------------- logging
 
     def _log_param_table(self):
+        """Names and full shapes (a mesh's split tensors counted whole)."""
+        tp = self.mesh.model if self.mesh is not None else 1
         prev = ""
         for name, p in self.model.named_parameters():
             top = name.split(".")[0]
@@ -501,8 +642,11 @@ class VQATrainer:
                 prev = top
                 self.logger.log_block("{:<70} {:<30} {:<30} {:<30}".format(
                     "Name", "Weight Shape", "Total Parameters", "Trainable"))
+            shape = list(p.shape)
+            if tp_dim(p) is not None:
+                shape[tp_dim(p)] *= tp
             self.logger.log_message("{:<70} {:<30} {:<30} {:<30}".format(
-                name, str(tuple(p.shape)), p.numel(),
+                name, str(tuple(shape)), int(np.prod(shape)),
                 str(self._labels[name] != FROZEN_LABEL)))
 
     def _log_startup_summary(self):
@@ -547,6 +691,8 @@ class VQATrainer:
                 if self.device.type == "cuda" else "")
         lg.log_message(f"Device: {self.device.type}{name} and Device Count: "
                        f"{count}")
+        if self.mesh is not None:
+            lg.log_message(f"Mesh: {self.mesh.shape}")
         lg.log_message(f"Compute dtype: {self.compute_dtype} (fp32 master "
                        f"weights)")
         lg.log_message(
@@ -613,10 +759,11 @@ class VQATrainer:
                 self._save_pair(epoch + 1)
                 # a synchronous record of how far this run got; the resume
                 # reads it to report replayed work after a crash
-                self.callbacks.ckpt.write_json(
-                    "training_progress.json",
-                    {"epochs_completed": epoch + 1,
-                     "global_step": self.global_step})
+                if self.is_writer:
+                    self.callbacks.ckpt.write_json(
+                        "training_progress.json",
+                        {"epochs_completed": epoch + 1,
+                         "global_step": self.global_step})
                 self.logger.sync()
                 self._enforce_checkpoint_lag_bound(epoch + 1)
                 if self.callbacks.should_stop:
@@ -648,7 +795,7 @@ class VQATrainer:
         epoch 0's steps run under the profiler."""
         tk = self.config.trainer
         with (profiling.trace(tk.trace_dir)
-              if tk.trace_dir and self.cur_epoch == 0
+              if tk.trace_dir and self.cur_epoch == 0 and self.is_writer
               else contextlib.nullcontext()):
             train_targets, pred_chunks, total_loss, epoch_time = \
                 self._run_steps()
@@ -682,7 +829,7 @@ class VQATrainer:
                 # a resume runs the interrupted epoch again
                 self._save_pair(self.cur_epoch)
             if tiny:
-                total_loss += float(torch.stack(window).sum())
+                total_loss += float(self._mean_losses(window).sum())
                 window.clear()
                 self.logger.log_message(
                     f"Epoch: {self.cur_epoch} - iteration "
@@ -690,7 +837,7 @@ class VQATrainer:
                     f"{total_loss:.4f}")
             elif batch_idx + 1 >= next_log:
                 next_log += self.ten_percent_train_batch
-                s = float(torch.stack(window).sum())
+                s = float(self._mean_losses(window).sum())
                 n = len(window)
                 window.clear()
                 total_loss += s
@@ -705,19 +852,38 @@ class VQATrainer:
                     f"{s / n:.4f}{log_lrs} - secs/batch "
                     f"{convert_time_to_readable_format(round(dt / n, 4))}")
         if window:
-            total_loss += float(torch.stack(window).sum())
+            total_loss += float(self._mean_losses(window).sum())
         epoch_time += time.time() - window_t0
         return train_targets, pred_chunks, total_loss, epoch_time
 
+    def _mean_losses(self, window: List[torch.Tensor]) -> torch.Tensor:
+        """The window's step losses; under a mesh averaged over the data
+        axis (row means of equal shards: the global batch's mean)."""
+        losses = torch.stack(window)
+        if self.mesh is not None:
+            losses = shd.mean_over_data(losses, self.mesh)
+        return losses
+
+    def _gather_rows(self, chunks: List[torch.Tensor]) -> torch.Tensor:
+        """[steps, rows] from per-step chunks; under a mesh each step's
+        rows of the whole global batch, in order."""
+        stacked = torch.stack(chunks)
+        if self.mesh is not None and self.mesh.data > 1:
+            stacked = shd.all_gather_cat(stacked, self.mesh.dp_group, 1,
+                                         self.mesh.data)
+        return stacked
+
     def _end_train_epoch(self, train_targets, pred_chunks, total_loss,
                          epoch_time):
-        train_predictions = (torch.cat(pred_chunks).cpu().tolist()
-                             if pred_chunks else [])
+        train_predictions = (self._gather_rows(pred_chunks).flatten().cpu()
+                             .tolist() if pred_chunks else [])
         self.total_training_time += epoch_time
         avg_epoch_loss = total_loss / max(1, self.total_train_batch)
-        preds_text = [self.answer_spaces[p] for p in train_predictions]
-        targets_text = [self.answer_spaces[t] for t in train_targets]
-        avg_wups = average_wups(preds_text, targets_text)
+        avg_wups = 0.0
+        if self.is_writer:
+            preds_text = [self.answer_spaces[p] for p in train_predictions]
+            targets_text = [self.answer_spaces[t] for t in train_targets]
+            avg_wups = average_wups(preds_text, targets_text)
 
         self.logger.log_line()
         self.logger.log_message(
@@ -747,21 +913,28 @@ class VQATrainer:
             valid = int(raw.get("_valid", len(labels)))
             valid_questions.extend(raw["questions"][:valid])
             loss, preds = self.eval_step(_device_batch(raw))
-            loss_chunks.append(loss[:valid])
-            pred_chunks.append(preds[:valid])
+            loss_chunks.append(loss)
+            pred_chunks.append(preds)
             valid_counts.append(valid)
             valid_targets.extend(labels[:valid].tolist())
 
         valid_predictions: List[int] = []
         total_valid_loss = 0.0
         if pred_chunks:
-            valid_predictions = torch.cat(pred_chunks).cpu().tolist()
-            total_valid_loss = float(torch.cat(loss_chunks).double().sum())
+            # the padding rows of a last partial batch are left out
+            losses = self._gather_rows(loss_chunks)
+            preds = self._gather_rows(pred_chunks)
+            valid_predictions = torch.cat(
+                [p[:n] for p, n in zip(preds, valid_counts)]).cpu().tolist()
+            total_valid_loss = float(torch.cat(
+                [x[:n] for x, n in zip(losses, valid_counts)]).double().sum())
         total_valid_count = sum(valid_counts)
 
         predictions_dict_list = []
         wups_scores = []
-        for pred, target, question in zip(valid_predictions, valid_targets,
+        # rank 0 scores a mesh run once and hands the others the score
+        scored = valid_predictions if self.is_writer else []
+        for pred, target, question in zip(scored, valid_targets,
                                           valid_questions):
             pred_text = self.answer_spaces[pred]
             target_text = self.answer_spaces[target]
@@ -774,10 +947,12 @@ class VQATrainer:
                 "wups_score": score,
             })
         avg_wups = (sum(wups_scores) / len(wups_scores)) if wups_scores else 0.0
+        if self.mesh is not None:
+            avg_wups = shd.broadcast_object(avg_wups, self.mesh)
         avg_valid_loss = total_valid_loss / max(1, total_valid_count)
 
         rouge_overall = None
-        if self.config.trainer.compute_rouge and valid_predictions:
+        if self.config.trainer.compute_rouge and scored:
             _, rouge_overall = compute_rouge_metric(
                 valid_predictions, valid_targets, self.answer_spaces)
 
@@ -795,12 +970,13 @@ class VQATrainer:
                     for k, v in rouge_overall.items()))
         self.logger.log_new_line()
 
-        pred_dir = os.path.join(self.output_dir, "validation_predictions")
-        os.makedirs(pred_dir, exist_ok=True)
-        with open(os.path.join(
-                pred_dir,
-                f"{self.cur_epoch}_validation_predictions.json"), "w") as f:
-            json.dump(predictions_dict_list, f)
+        if self.is_writer:
+            pred_dir = os.path.join(self.output_dir, "validation_predictions")
+            os.makedirs(pred_dir, exist_ok=True)
+            with open(os.path.join(
+                    pred_dir, f"{self.cur_epoch}_validation_predictions.json"),
+                    "w") as f:
+                json.dump(predictions_dict_list, f)
 
         metrics = {
             "epoch": self.cur_epoch,
@@ -818,15 +994,27 @@ class VQATrainer:
 
     @classmethod
     def from_config(cls, config: Config, tokenizer=None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    mesh: Optional[shd.Mesh] = None):
         """Read the answer space and build the model from ``config``
-        (random weights from ``generator``; default seeded with 0)."""
+        (random weights from ``generator``; default seeded with 0, the same
+        on every rank of a ``mesh``)."""
         dk = config.dataset
         answer_spaces = load_answer_spaces(
             os.path.join(dk.root_data_dir, dk.answer_spaces_file))
         if config.trainer.mxp_training:
             config.model.compute_dtype = "bfloat16"
+        device = (mesh.device if mesh is not None
+                  else trainer_device(config.trainer.device))
         model, _ = build_model(config.model, len(answer_spaces),
-                               device=trainer_device(config.trainer.device),
-                               generator=generator)
-        return cls(model, config, answer_spaces, tokenizer=tokenizer)
+                               device=device, generator=generator)
+        return cls(model, config, answer_spaces, tokenizer=tokenizer,
+                   mesh=mesh)
+
+
+def train_rank(rank: int, config: Config, shape) -> None:
+    """One rank of a mesh run of the entry points (``parallel/launch.py``
+    calls it in each rank's process): the mesh of ``shape`` and a trainer
+    on it."""
+    from ..parallel import make_mesh
+    VQATrainer.from_config(config, mesh=make_mesh(*shape)).train()

@@ -278,8 +278,10 @@ def test_concurrent_clients(served):
 
 
 def test_serve_cli(data, monkeypatch, capsys):
+    # a mesh that cannot be made is refused before anything loads (the
+    # default config names the card, which this machine lacks)
     for mesh in (["--data-parallel", "2"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(SystemExit):
             build_server(mesh)
     answers = data["answers"]
     out_dir = data["tmp"] / "serve_ckpt"

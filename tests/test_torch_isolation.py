@@ -6,6 +6,9 @@
   tokenizers, triton, nltk) are imported only inside functions.
 * Every module imports in a fresh interpreter in which ``import jax`` fails.
 * Entry points raise when no CUDA device exists and the CPU was not named.
+* A mesh (``parallel/``) larger than the visible cards raises instead of
+  running on fewer ranks, in the launcher and in both entry points; the
+  CPU runs one only when it is named.
 """
 
 import ast
@@ -70,7 +73,10 @@ def test_package_has_sources():
                 "models/faster_rcnn_vqa.py", "models/roberta.py",
                 "models/cross_attention_vqa.py", "data/answer_space.py",
                 "data/okvqa.py", "viz/__init__.py", "viz/heatmap.py",
-                "viz/__main__.py", "eval/http_server.py", "serve.py"):
+                "viz/__main__.py", "eval/http_server.py", "serve.py",
+                "parallel/__init__.py", "parallel/sharding.py",
+                "parallel/tensor_parallel.py", "parallel/launch.py",
+                "data/daquar_vocab.py"):
         assert rel in names
     for cu in ("attention.cu", "bottleneck.cu"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", cu))
@@ -226,3 +232,50 @@ def test_new_family_models_and_sessions_raise_without_cuda(no_cuda, build,
         VQAInferenceSession(model, None, answers, family)
     session = VQAInferenceSession(model, None, answers, family, device="cpu")
     assert session.device.type == "cpu"
+
+
+def test_mesh_larger_than_the_cards_raises(monkeypatch):
+    from t5_resnet_vqa_torch.parallel import launch
+
+    assert launch.resolve_mesh_size(2, 2, "cpu") == 2
+    with pytest.raises(ValueError, match="counts cards"):
+        launch.resolve_mesh_size(-1, 1, "cpu")
+    with pytest.raises(ValueError, match="only 0 available"):
+        launch.resolve_mesh_size(2, 1, "cuda")       # no card here
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert launch.resolve_mesh_size(-1, 1, "cuda") == 3
+    assert launch.resolve_mesh_size(1, 3, "cuda") == 1
+    with pytest.raises(ValueError, match="only 3 available"):
+        launch.resolve_mesh_size(2, 2, "cuda")
+    with pytest.raises(ValueError, match="not divisible by model axis 2"):
+        launch.resolve_mesh_size(-1, 2, "cuda")
+
+
+@pytest.mark.parametrize("module", ["train", "serve"])
+def test_mesh_entry_points_raise_without_cuda(no_cuda, module, tmp_path):
+    """Without ``device=cpu`` a mesh needs cards: on a machine without one
+    the entry points stop before anything loads or any rank starts."""
+    import importlib
+    import json
+
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps({"trainer_kwargs": {"device": "cuda"}}))
+    parse = importlib.import_module(
+        f"t5_resnet_vqa_torch.{module}" + (".__main__" if module == "train"
+                                            else "")).parse_args
+    with pytest.raises(SystemExit):
+        parse(["--config", str(path), "--data-parallel", "2"])
+    path.write_text(json.dumps({"trainer_kwargs": {"device": "cpu"}}))
+    assert parse(["--config", str(path), "--data-parallel", "2"])[-1] == \
+        (2, 1)
+
+
+def test_launcher_builds_nothing_at_import():
+    """The launcher starts no process and no group at import; a rank's
+    device is the one it was given."""
+    import torch.distributed as dist
+
+    from t5_resnet_vqa_torch.parallel import launch
+
+    assert not dist.is_initialized()
+    assert launch.current_device() == torch.device("cpu")

@@ -223,8 +223,8 @@ def test_resume_loads_best_model_params(runs):
 def test_unported_knobs_raise(runs, tmp_path):
     # the trainer refuses no knob any more: reduced_decode and num_workers
     # reach its collates (tests/test_torch_reduced_decode.py) and OK-VQA its
-    # datasets (tests/test_torch_okvqa.py); the one refusal left is a mesh,
-    # in the entry point
+    # datasets (tests/test_torch_okvqa.py); the entry point takes a mesh and
+    # refuses only one that cannot be made
     raw = _raw_config(runs["root"], runs["kw"], tmp_path)
     raw["dataset_kwargs"].update(reduced_decode=2, num_workers=2)
     path = _write(tmp_path, raw)
@@ -237,8 +237,10 @@ def test_unported_knobs_raise(runs, tmp_path):
                    if "Not implemented by the port" in line)
     assert "num_workers" not in ignored
     from t5_resnet_vqa_torch.train.__main__ import parse_args
-    for mesh in (["--data-parallel", "2"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    assert parse_args(["--config", path, "--data-parallel", "2"])[1] == \
+        (2, 1)
+    for mesh in (["--model-parallel", "2"], ["--data-parallel", "-1"]):
+        with pytest.raises(SystemExit):
             parse_args(["--config", path, *mesh])
 
 
