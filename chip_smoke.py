@@ -230,6 +230,23 @@ Phases (each raises on failure; nothing is caught):
               (ViT and RoBERTa at tp=2); the kernels line gives their
               per-launch numbers under ``tp2_*``.
 
+Attention has two bf16 routes (``ops/attention.py``, ``_route``): the TMA +
+wgmma kernel takes D=64 with 64 <= Sq, Sk <= 256 (the ViT and RoBERTa
+self-attentions), the ``mma.sync`` kernel everything else (the SGA
+blocks). The kernel phase checks each case's route, holds the ``mma.sync``
+route (forced through ``_launch(..., route="mma_sync")``) against the plain
+version at the wgmma route's shapes too and times the two in turns (old,
+new, new, old: ``ms`` is the new route's mean, ``mma_sync_ms`` the old
+one's); ``kernel_edges`` holds the bf16 routes at the edges of the wgmma
+route's range (Sq=Sk=64, 65, 128, 256; Sq=197 over 64 keys; Sq=16 over
+197 keys, which keeps ``mma_sync``), contiguous and on head views. The
+serve, serve_vit, serve_frcnn, serve_cross, train timing and mesh lines
+check the launches by route: 6 SGA launches per forward through
+``mma_sync``; 12 per ViT forward, 24 per cross-attention forward, 12 (+ 12
+VJPs) per cache-off (fine-tuned) ViT step, 24 + 12 VJPs per
+cross-attention step and 12 per tp=2 rank's ViT forward through
+``wgmma``.
+
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -262,8 +279,13 @@ cases. Attention's ``vit_ms``, ``vit_plain_ms``, ``vit_bound_ms`` and
 ``vit_library_ms`` are per launch at the ViT shape (B=64, H=12, S=197,
 D=64, bf16), and so are ``vit_bwd_ms`` and ``vit_plain_bwd_ms``; the
 ``cross_*`` numbers likewise at the RoBERTa shape (B=64, H=12, S=213,
-D=64, bf16). Bounds are the larger of bytes over 3.35 TB/s and FLOPs over
-the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32), H100 SXM data sheet.
+D=64, bf16), with ``vit_mma_sync_ms`` the ``mma.sync`` route's time in
+the same turns; ``route_launches``, ``vit_route_launches``,
+``frcnn_route_launches``, ``cross_route_launches`` and
+``mesh_vit_route_launches_per_forward_per_rank`` split the attention
+launches of those runs by route. Bounds are the larger of bytes over 3.35
+TB/s and FLOPs over the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32),
+H100 SXM data sheet.
 """
 
 import contextlib
@@ -407,6 +429,24 @@ def add_bound(per_forward: dict, n: int, t_bytes: float, t_ops: float):
                                        per_forward["ops_ms"])
 
 
+def route_counts(A) -> dict:
+    """A copy of the attention wrapper's launches by route."""
+    return dict(A.route_launches)
+
+
+def routes_since(A, before: dict) -> dict:
+    """Attention launches by route since ``before`` (a ``route_counts``);
+    routes with none are left out."""
+    return {r: n - before.get(r, 0) for r, n in A.route_launches.items()
+            if n != before.get(r, 0)}
+
+
+def check_routes(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: attention launches by route {got}, "
+                             f"expected {want}")
+
+
 def rel_err(got, want) -> tuple:
     got, want = got.detach().float(), want.detach().float()
     abs_err = float((got - want).abs().max())
@@ -466,6 +506,12 @@ def phase_attention(torch):
             # the main path's inputs: head views of [B, S, H*D] projections
             qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
                           for t in (q, k, v))
+            route = A._route(qv, kv, vv)
+            want_route = ("fp32" if dtype_name == "float32" else
+                          "wgmma" if D == 64 else "mma_sync")
+            if route != want_route or A._route(q, k, v) != route:
+                raise AssertionError(f"attention {name} {dtype_name}: route "
+                                     f"{route}, expected {want_route}")
             abs_err = rel = 0.0
             for args in ((q, k, v), (qv, kv, vv)):
                 got = A.fused_attention(*args)
@@ -477,7 +523,24 @@ def phase_attention(torch):
                         f"attention {name} {dtype_name}: max-abs error "
                         f"{a} ({r} of max|ref|) > {ATT_TOL[dtype_name]}")
                 abs_err, rel = max(abs_err, a), max(rel, r)
-            ms = device_ms(torch, lambda: A.fused_attention(q, k, v))
+            older = {}
+            if route == "wgmma":
+                # today's mma.sync route on the same inputs: checked, then
+                # timed in turns with the new one (old, new, new, old)
+                a, r = rel_err(A._launch(qv, kv, vv, route="mma_sync"), want)
+                if not r <= ATT_TOL[dtype_name]:
+                    raise AssertionError(
+                        f"attention {name} on the mma_sync route: max-abs "
+                        f"error {a} ({r} of max|ref|) > {ATT_TOL[dtype_name]}")
+                older = {"mma_sync_max_abs_err": a}
+                routes = (lambda: A._launch(q, k, v, route="mma_sync"),
+                          lambda: A.fused_attention(q, k, v))
+                turns = [device_ms(torch, routes[i]) for i in (0, 1, 1, 0)]
+                ms = (turns[1] + turns[2]) / 2
+                older.update({"mma_sync_ms": (turns[0] + turns[3]) / 2,
+                              "turns_ms": turns})
+            else:
+                ms = device_ms(torch, lambda: A.fused_attention(q, k, v))
             views_ms = device_ms(torch, lambda: A.fused_attention(qv, kv, vv))
             plain_ms = device_ms(torch,
                                  lambda: A.attention_reference(q, k, v))
@@ -488,12 +551,12 @@ def phase_attention(torch):
                                          dtype_name)
             line = {"phase": "kernel", "kernel": "attention", "case": name,
                     "dtype": dtype_name, "shape": [B, H, Sq, Sk, D],
-                    "max_abs_err": abs_err, "rel_err": rel,
+                    "route": route, "max_abs_err": abs_err, "rel_err": rel,
                     "tol": ATT_TOL[dtype_name], "ms": ms,
                     "ms_head_views": views_ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                     "bound_share": max(t_bytes, t_ops) / ms,
-                    "bound_by": bound_by(t_bytes, t_ops)}
+                    "bound_by": bound_by(t_bytes, t_ops), **older}
             # every shape is on a training path: the SGA's at dropout 0,
             # the ViT's with the cache off or a fine-tuned tower
             line.update(attention_backward(torch, A, B, H, Sq, Sk, D,
@@ -501,7 +564,8 @@ def phase_attention(torch):
             emit(line)
             if dtype_name == "bfloat16" and name in PER_LAUNCH_CASES:
                 per_forward[PER_LAUNCH_CASES[name]] = {
-                    "ms": ms, "ms_head_views": views_ms,
+                    "route": route, **older, "ms": ms,
+                    "ms_head_views": views_ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": bound_by(t_bytes, t_ops),
@@ -520,6 +584,51 @@ def phase_attention(torch):
                 per_forward["bwd_max_abs_err"] = max(
                     per_forward["bwd_max_abs_err"], line["bwd_max_abs_err"])
     return per_forward
+
+
+# the wgmma route's edges (D=64, bf16): Sq, Sk and the route each must take
+ATTENTION_EDGES = [(64, 64, "wgmma"), (65, 65, "wgmma"), (128, 128, "wgmma"),
+                   (256, 256, "wgmma"), (197, 64, "wgmma"),
+                   (16, 197, "mma_sync")]
+EDGE_BATCH, EDGE_HEADS = 8, 12
+
+
+def phase_attention_edges(torch):
+    """The bf16 routes at the edges of the wgmma route's range, contiguous
+    and on head views, against the plain version (ATT_TOL)."""
+    from t5_resnet_vqa_torch.ops import attention as A
+
+    cases = []
+    for Sq, Sk, want_route in ATTENTION_EDGES:
+        g = torch.Generator(device=DEVICE).manual_seed(Sq * 1000 + Sk)
+        for views in (False, True):
+            if views:
+                q, k, v = (torch.randn(EDGE_BATCH, s, EDGE_HEADS * 64,
+                                       device=DEVICE, generator=g)
+                           .to(torch.bfloat16)
+                           .reshape(EDGE_BATCH, s, EDGE_HEADS, 64)
+                           .transpose(1, 2) for s in (Sq, Sk, Sk))
+            else:
+                q, k, v = (torch.randn(EDGE_BATCH, EDGE_HEADS, s, 64,
+                                       device=DEVICE, generator=g)
+                           .to(torch.bfloat16) for s in (Sq, Sk, Sk))
+            before = route_counts(A)
+            got = A.fused_attention(q, k, v)
+            want = A.attention_reference(q, k, v)
+            torch.cuda.synchronize()
+            check_routes(f"attention edge Sq={Sq} Sk={Sk}",
+                         routes_since(A, before), {want_route: 1})
+            a, r = rel_err(got, want)
+            if not r <= ATT_TOL["bfloat16"]:
+                raise AssertionError(
+                    f"attention edge Sq={Sq} Sk={Sk} views={views}: max-abs "
+                    f"error {a} ({r} of max|ref|) > {ATT_TOL['bfloat16']}")
+            cases.append({"Sq": Sq, "Sk": Sk, "head_views": views,
+                          "route": want_route, "max_abs_err": a,
+                          "rel_err": r})
+    emit({"phase": "kernel_edges", "kernel": "attention", "dtype": "bfloat16",
+          "batch": EDGE_BATCH, "heads": EDGE_HEADS, "D": 64,
+          "tol": ATT_TOL["bfloat16"], "cases": cases})
 
 
 def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
@@ -691,11 +800,15 @@ def phase_serve(torch, card):
     # the main path once: three chunks of requests, counts read right after
     A.launches = 0
     K.launches = 0
+    routes = route_counts(A)
     first_ms, results = serve_ms(torch, session, requests)
     launches = {"attention": A.launches, "bottleneck": K.launches}
     if launches != {"attention": 6 * CHUNKS, "bottleneck": 7 * CHUNKS}:
         raise AssertionError(f"launch counts {launches}, expected 6 and 7 "
                              f"per forward over {CHUNKS} forwards")
+    launches["attention_routes"] = routes_since(A, routes)
+    check_routes("CNN serve", launches["attention_routes"],
+                 {"mma_sync": 6 * CHUNKS})
     if len(results) != len(requests) or \
             not all(r["answer"] in answers for r in results):
         raise AssertionError("answers missing or outside the answer space")
@@ -908,11 +1021,15 @@ def phase_serve_vit(torch, card):
     # the main path once: three chunks of requests, counts read right after
     A.launches = 0
     K.launches = 0
+    routes = route_counts(A)
     first_ms, results = serve_ms(torch, session, requests)
     launches = {"attention": A.launches, "bottleneck": K.launches}
     if launches != {"attention": 12 * CHUNKS, "bottleneck": 0}:
         raise AssertionError(f"ViT launch counts {launches}, expected 12 "
                              f"attention per forward over {CHUNKS} forwards")
+    launches["attention_routes"] = routes_since(A, routes)
+    check_routes("ViT serve", launches["attention_routes"],
+                 {"wgmma": 12 * CHUNKS})
     if len(results) != len(requests) or \
             not all(r["answer"] in answers for r in results):
         raise AssertionError("answers missing or outside the answer space")
@@ -1092,15 +1209,17 @@ def _build_cross_model(torch, dtype, use_kernels, dropout=True):
 
 
 # the two families of this phase group: the session's family, the model's
-# build function, image size, (attention, bottleneck) launches per forward, and
-# the vision model name (and language model) of the trainer's config
+# build function, image size, (attention, bottleneck) launches per forward,
+# the bf16 attention route, and the vision model name (and language model)
+# of the trainer's config
 FAMILIES = {
     "frcnn": {"session": "cnn", "build": _build_frcnn_model, "size": IMAGE,
-              "launches": (6, 7), "vision": "faster-rcnn", "lang": "t5-base",
-              "model": "resnet50-fpn + t5-base + 3xSGA"},
+              "launches": (6, 7), "route": "mma_sync", "vision": "faster-rcnn",
+              "lang": "t5-base", "model": "resnet50-fpn + t5-base + 3xSGA"},
     "cross": {"session": "cross_attention", "build": _build_cross_model,
-              "size": VIT_IMAGE, "launches": (24, 0), "vision": VIT_NAME,
-              "lang": "roberta-base", "model": "vit-base x roberta-base"},
+              "size": VIT_IMAGE, "launches": (24, 0), "route": "wgmma",
+              "vision": VIT_NAME, "lang": "roberta-base",
+              "model": "vit-base x roberta-base"},
 }
 
 
@@ -1149,6 +1268,7 @@ def phase_serve_family(torch, card, family):
     # the main path once: three chunks of requests, counts read right after
     A.launches = 0
     K.launches = 0
+    routes = route_counts(A)
     first_ms, results = serve_ms(torch, session, requests)
     launches = {"attention": A.launches, "bottleneck": K.launches}
     per_forward = dict(zip(("attention", "bottleneck"), spec["launches"]))
@@ -1156,6 +1276,9 @@ def phase_serve_family(torch, card, family):
         raise AssertionError(f"{family} launch counts {launches}, expected "
                              f"{per_forward} per forward over {CHUNKS} "
                              f"forwards")
+    launches["attention_routes"] = routes_since(A, routes)
+    check_routes(f"{family} serve", launches["attention_routes"],
+                 {spec["route"]: per_forward["attention"] * CHUNKS})
     if len(results) != len(requests) or \
             not all(r["answer"] in answers for r in results):
         raise AssertionError("answers missing or outside the answer space")
@@ -1657,6 +1780,16 @@ def phase_train_vit(torch, card):
                 torch.device(DEVICE), torch.bfloat16).train(), batches[0])}
         timing = train_timing(torch, cfg, variants, card, "train_vit_timing",
                               True, TRAIN_ROUNDS)
+        for label, want in (("cached", ({}, 0)),
+                            ("cache_off", ({"wgmma": 12}, 0)),
+                            ("fine_tuned", ({"wgmma": 12}, 12))):
+            got = timing[label]["launches_per_step"]
+            check_routes(f"ViT {label} train step", got["attention_routes"],
+                         want[0])
+            if got["attention_vjps"] != want[1]:
+                raise AssertionError(f"ViT {label} train step: "
+                                     f"{got['attention_vjps']} attention "
+                                     f"VJPs, expected {want[1]}")
         del variants, reloaded
         torch.cuda.empty_cache()
     finally:
@@ -1738,6 +1871,17 @@ def phase_train_family(torch, card, family):
         timing = train_timing(torch, cfg, variants, card,
                               f"train_{family}_timing", True,
                               FAMILY_TRAIN_ROUNDS)
+        # production dropout: the SGA's attention takes the plain path, the
+        # cross-attention family's 24 launches and 12 VJPs the wgmma route
+        for label in timing:
+            got = timing[label]["launches_per_step"]
+            want = ({"wgmma": 24}, 12) if family == "cross" else ({}, 0)
+            check_routes(f"{family} {label} train step",
+                         got["attention_routes"], want[0])
+            if got["attention_vjps"] != want[1]:
+                raise AssertionError(f"{family} {label} train step: "
+                                     f"{got['attention_vjps']} attention "
+                                     f"VJPs, expected {want[1]}")
         del variants, reloaded
         torch.cuda.empty_cache()
     finally:
@@ -1919,10 +2063,11 @@ def train_timing(torch, cfg, variants, card, phase, dropout,
             times[label].append(step_ms(torch, steps[label]))
     result = {}
     for label, (model, batch) in variants.items():
-        a0, k0, v0 = A.launches, K.launches, A.vjps
+        a0, k0, v0, r0 = A.launches, K.launches, A.vjps, route_counts(A)
         steps[label]()
         counts = {"attention": A.launches - a0, "bottleneck": K.launches - k0,
-                  "attention_vjps": A.vjps - v0}
+                  "attention_vjps": A.vjps - v0,
+                  "attention_routes": routes_since(A, r0)}
         median = float(np.median(times[label]))
         line = {"phase": phase, "config": label, "card": card,
                 "dropout": "production" if dropout else 0.0,
@@ -3406,16 +3551,18 @@ def mesh_serve_vit(torch, rank):
             session.collate.load_images = load_images
             session.ask_batch(requests)           # allocator, cuDNN
             torch.cuda.synchronize()
-            a0, k0 = A.launches, K.launches
+            a0, k0, r0 = A.launches, K.launches, route_counts(A)
             t0 = time.perf_counter()
             results = session.ask_batch(requests)
             ask_ms = (time.perf_counter() - t0) * 1e3
             launches = [A.launches - a0, K.launches - k0]
+            routes = routes_since(A, r0)
             log_probs = session._gather(session._dispatch_chunk(requests))
             tokens = _padded_tokens(_generate(session, requests, 1))
             top1 = [r["answer"] for r in results]
             out[f"{dtype_name}_{_shape_name(shape)}"] = {
-                "launches_per_forward": launches, "ask_ms": ask_ms,
+                "launches_per_forward": launches,
+                "routes_per_forward": routes, "ask_ms": ask_ms,
                 "vit_heads": session.model.vision_model.encoder.layer[0]
                 .attention.attention.query.weight.shape[0] // 64,
                 "log_probs": log_probs.float().cpu().numpy()
@@ -3675,11 +3822,17 @@ def phase_mesh(torch, card):
             key = f"{dtype_name}_{_shape_name(shape)}"
             ranks = [r["serve_vit"][key] for r in results
                      if key in r["serve_vit"]]
+            want_routes = {"wgmma" if dtype_name == "bfloat16" else
+                           "fp32": 12}
             if len(ranks) != shape[0] * shape[1] or any(
                     r["launches_per_forward"] != [12, 0] or
+                    r["routes_per_forward"] != want_routes or
                     r["vit_heads"] != 12 // shape[1] for r in ranks):
-                raise AssertionError(f"ViT {key}: {len(ranks)} ranks, "
-                                     f"launches and heads {ranks}")
+                seen = [(r["launches_per_forward"], r["routes_per_forward"],
+                         r["vit_heads"]) for r in ranks]
+                raise AssertionError(f"ViT {key}: {len(ranks)} ranks; "
+                                     f"launches, routes (expected "
+                                     f"{want_routes}) and heads {seen}")
             rec = ranks[0]
             err = float(np.abs(rec["log_probs"] - one["log_probs"]).max())
             same = float((rec["tokens"] == one["tokens"]).all(-1).mean())
@@ -3697,7 +3850,9 @@ def phase_mesh(torch, card):
                         "ask_ms": rec["ask_ms"], "one_device_ask_ms":
                             one["ask_ms"],
                         "launches_per_forward_per_rank":
-                            rec["launches_per_forward"]}
+                            rec["launches_per_forward"],
+                        "routes_per_forward_per_rank":
+                            rec["routes_per_forward"]}
     line["serve_vit"] = vit
 
     if torch.cuda.device_count() >= 2:
@@ -3718,7 +3873,9 @@ def phase_mesh(torch, card):
                 ["launches_per_train_step"][0])),
             "vit_per_forward_per_rank": dict(zip(
                 names, results[0]["serve_vit"]["bfloat16_1x2"]
-                ["launches_per_forward"]))}
+                ["launches_per_forward"])),
+            "vit_routes_per_forward_per_rank":
+                results[0]["serve_vit"]["bfloat16_1x2"]["routes_per_forward"]}
 
 
 def main() -> int:
@@ -3741,6 +3898,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     phase_build(torch, card)
     att = phase_attention(torch)
+    phase_attention_edges(torch)
     blk = phase_bottleneck(torch)
     launches = phase_serve(torch, card)
     vit_launches = phase_serve_vit(torch, card)
@@ -3800,6 +3958,13 @@ def main() -> int:
                 f"{f}_train_launches_per_step":
                     family_train[f]["per_step"][name]})
     vit, cross = att["vit"], att["cross"]
+    kernels[0].update({
+        "route_launches": launches["attention_routes"],
+        "vit_route_launches": vit_launches["attention_routes"],
+        **{f"{f}_route_launches": family_launches[f]["attention_routes"]
+           for f in FAMILIES},
+        "mesh_vit_route_launches_per_forward_per_rank":
+            mesh["vit_routes_per_forward_per_rank"]})
     kernels[0].update({f"cross_{k}": v for k, v in cross.items()})
     for case in ("tp2_sga_sk16", "tp2_sga_sk64", "tp2_vit_s197",
                  "tp2_cross_s213"):
@@ -3808,7 +3973,11 @@ def main() -> int:
                        "plain_bwd_ms": att["plain_bwd_ms"],
                        "bwd_max_abs_err": att["bwd_max_abs_err"],
                        "vit_launches": vit_launches["attention"],
+                       "vit_route": vit["route"],
                        "vit_ms": vit["ms"],
+                       "vit_mma_sync_ms": vit["mma_sync_ms"],
+                       "vit_mma_sync_max_abs_err": vit["mma_sync_max_abs_err"],
+                       "vit_turns_ms": vit["turns_ms"],
                        "vit_ms_head_views": vit["ms_head_views"],
                        "vit_plain_ms": vit["plain_ms"],
                        "vit_bound_ms": vit["bound_ms"],

@@ -7,16 +7,72 @@
 // rounded to the value dtype, P.V accumulated in fp32, output cast to the
 // query dtype.
 //
-// What bounds it on an H100: bytes. At the SGA geometry (H=8, D=96, Sq=16,
-// Sk<=64) each head does 2*Sq*Sk*D*2 FLOPs on (Sq + 2*Sk + Sq)*D elements,
-// about 16 FLOPs per byte, far below the ~295 FLOPs/byte at which the
-// tensor cores become the limit. So everything that is not an input or an
-// output stays on chip, and the inputs are read in place: q, k and v may be
-// the strided head views of a [B, S, H*D] projection (D contiguous), and the
-// output is written in [B, Sq, H, D] order, so the caller's head split and
-// merge cost no copies.
+// Three routes, chosen by the Python wrapper (ops/attention.py, _route) by
+// geometry alone:
+//  * attention_forward_tma, bf16 with D = 64, 64 <= Sq, Sk <= 256 and
+//    tensor-map readable strides (every base and stride a multiple of 16
+//    bytes): TMA + wgmma, one pass over the keys. The ViT (S=197) and
+//    RoBERTa (S=213) self-attentions.
+//  * attention_forward, bf16 otherwise: mma.sync tiles of 16 query rows.
+//    The SGA blocks (H=8, D=96, Sq=16, Sk<=64).
+//  * attention_forward, fp32: CUDA cores, a check path.
 //
-// bf16 (the main path): tensor cores through mma.sync m16n8k16.
+// What bounds it on an H100: bytes. At the SGA geometry each head does
+// 2*Sq*Sk*D*2 FLOPs on (Sq + 2*Sk + Sq)*D elements, about 16 FLOPs per
+// byte; at S=197, D=64 it is 2*S*D*2*S / (4*S*D*2) = S/2, about 98 FLOPs
+// per byte. Both are far below the ~295 FLOPs/byte at which the tensor
+// cores become the limit: at B=64, H=12, S=197 the 77.5 MB that must move
+// (q, k, v read once, the output written once) take 0.023 ms at 3.35 TB/s,
+// the 7.6 GFLOP of the two products under 0.01 ms at 989 TFLOP/s, and the
+// 30 M exponentials about 0.008 ms on the SFUs. So everything that is not an
+// input or an output stays on chip, and the inputs are read in place: q, k
+// and v may be the strided head views of a [B, S, H*D] projection (D
+// contiguous), and the output is written in [B, Sq, H, D] order, so the
+// caller's head split and merge cost no copies.
+//
+// bf16, long rows (attention_forward_tma): one pass with TMA and wgmma.
+//  * Sk <= 256, so a whole row of scores fits in the registers of the quad
+//    of threads that owns it. The softmax therefore takes one pass over
+//    the keys and still rounds exactly what the reference rounds: each
+//    row's max and sum come from the quad's own registers (two shuffles),
+//    P = exp(S - max) * (1 / sum) is formed in fp32 and rounded to bf16
+//    after normalising. FlashAttention's online softmax would round the
+//    unnormalised P instead, a different number.
+//  * A persistent block per SM walks heads (b, h): one producer thread
+//    keeps a 2-stage ring of TMA loads in flight on mbarriers (per head
+//    one box of K, N = round16(Sk) rows, and one of Q, ceil(Sq/64) 64-row
+//    tiles, on one barrier; one box of V on another, so the scores start
+//    before V lands; rows past Sk or Sq zero-filled by the map), over the
+//    caller's strided views as 4-D maps (D, S, H, B) with the 128-byte
+//    swizzle, which fits D = 64 exactly (a row is 128 bytes). The next
+//    head arrives while the current one is computed.
+//  * Two consumer warpgroups; group g takes the head's query tiles g,
+//    g + 2, ... (two each at S=197 and 213). Per tile: S = Q K^T as one
+//    wgmma m64nNk16 chain (4 k16 steps, Q and K from shared memory) into
+//    N/2 fp32 registers a thread; the softmax, masking only the last two
+//    n8 blocks (the only ones that can hold padded keys); O = P V as a
+//    chain of N/16 wgmma m64n64k16 with P from registers (the accumulator
+//    layout of S, rounded to bf16 pairs, is the A-register layout) and V
+//    from shared memory, transposed on read (V is [Sk][D], MN-major), into
+//    32 fp32 registers. O leaves through the group's swizzled 8 KB staging
+//    tile by a TMA store into [B, Sq, H, D] that clips rows past Sq. A warp
+//    whose 16 rows all lie past Sq (the last tile at S=197 has 5 live rows)
+//    skips its exponentials. The two groups are not made to take turns at
+//    the tensor cores (FlashAttention-3's ping-pong): tried, it measured
+//    slower here, where the exponentials, not the products, fill the time.
+//  * Budget: 3 x 128 threads, __launch_bounds__(384, 1): 168 registers a
+//    thread at launch (ptxas -v, every N), then setmaxnreg takes the
+//    producer group to 24 and gives the consumers 240 (24 + 2 x 240 = 504
+//    of the 512 each sub-partition holds for its three warps). At 168 the
+//    wgmma chains of N >= 192 spilled and were serialized (ptxas C7512).
+//    A consumer needs N/2 registers for S (104 at S=197, 112 at S=213),
+//    N/4 for P and 32 for O. Shared memory: 2 stages of Q (32 KB) + K and
+//    V (52 KB at N=208, 56 KB at N=224), two 8 KB output tiles and 2 KB of
+//    barriers and alignment: 186-194 KB of the 227 KB a block may have.
+//    One instantiation per N (64..256 in steps of 16): the products'
+//    widths are compile-time.
+//
+// bf16, other shapes (attention_forward): mma.sync m16n8k16.
 //  * A block of 4 warps stages K and V of its heads in shared memory with
 //    16-byte cp.async copies (4-byte where a view's rows are not 16-byte
 //    aligned), D padded with zeros to a multiple of 16 and Sk to a multiple
@@ -32,10 +88,10 @@
 //    unnormalised P is ever rounded.
 //  * One head per block, one warp per 16 query rows, up to 8 warps (128
 //    rows) sharing the head's staged K and V: SGA (Sq = 16) runs B*H
-//    one-warp blocks (512 at B=64, H=8), ViT (S = 197) two blocks a head.
-//    Each key tile's fragments are all loaded before its products, so the
-//    shared-memory latencies overlap; register arrays are sized for D up
-//    to 64 or up to 128 (two instantiations).
+//    one-warp blocks (512 at B=64, H=8). Each key tile's fragments are all
+//    loaded before its products, so the shared-memory latencies overlap;
+//    register arrays are sized for D up to 64 or up to 128 (two
+//    instantiations).
 //  * The output goes through the warp's Q area in shared memory, so rows
 //    leave in 16-byte stores.
 //
@@ -267,6 +323,267 @@ size_t smem_bf16(int qt, int Sk, int D) {
   return ((size_t)2 * round16(Sk) + (size_t)qt * 16) * ld * 2;
 }
 
+// ============================================= bf16, long rows: TMA + wgmma
+
+namespace tma {
+
+constexpr int kRows = 64;                    // query rows of a tile: wgmma's M
+constexpr int kD = 64;                       // the route's D: one 128-byte row
+constexpr int kTileBytes = kRows * kD * 2;   // 8192
+constexpr int kGroups = 2;                   // consumer warpgroups
+constexpr int kThreads = (kGroups + 1) * 128;  // + the producer warpgroup
+// registers per thread after setmaxnreg: 24 + 2 * 240 = 504 of the 512 a
+// sub-partition holds for its three warps (one of each group)
+constexpr unsigned kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages = 2;
+constexpr int kMaxS = 256;                   // Sq and Sk: one box each
+
+struct Geo {
+  int items, H, Sq, Sk;     // items = B * H heads
+  int nqt;                  // 64-row query tiles per head
+  unsigned q_bytes;         // a stage's Q box: nqt tiles
+  unsigned kv_bytes;        // a stage's K box, and its V box: N rows
+  float scale_log2;         // log2(e) / sqrt(D)
+};
+
+// Shared memory: 1024 bytes of alignment slack, 1024 for the barriers, the
+// stages (Q tiles, K rows, V rows, each 1024-byte aligned) and one 8 KB
+// output tile per consumer group.
+inline size_t smem_bytes(int nqt, int N) {
+  const size_t stage = (size_t)nqt * kTileBytes + 2 * (size_t)N * kD * 2;
+  return 2048 + kStages * stage + kGroups * kTileBytes;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One 64-row query tile of a head, by one consumer warpgroup: S = Q K^T,
+// the softmax of each row, P V, and the tile out by a TMA store. qs, ks
+// and vs are the swizzled tiles in shared memory (Q and K landed, V
+// landing on v_bar); rows of K and V past Sk are zeros (the map's
+// out-of-bounds fill).
+template <int N>
+__device__ __forceinline__ void tile(const bf16* qs, const bf16* ks, const bf16* vs,
+                                     uint64_t* v_bar, unsigned ph, bf16* ostg,
+                                     const CUtensorMap* omap, int row0, int b,
+                                     int h, const Geo& g, int group) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = threadIdx.x & 31;
+
+  // ---- S = Q K^T: four k16 steps along D, 32 bytes apart in a row ----
+  float s[N / 2];
+  const uint64_t dq = wgmma_desc_sw128(qs, 16, 1024);
+  const uint64_t dk = wgmma_desc_sw128(ks, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    WgmmaSS<N>::run(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) fence_reg(s[i]);
+
+  // ---- softmax of the thread's rows r (e < 2) and r + 8 (e >= 2): the
+  // whole row is in the quad's registers, so max and sum take one pass;
+  // P is normalised in fp32 and only then rounded to bf16, as the
+  // reference rounds it. A warp whose 16 rows all lie past Sq skips it. ----
+  unsigned pa[N / 16][4];
+  if (row0 + warp * 16 < g.Sq) {
+    // N = round16(Sk): padded keys lie in the last two n8 blocks only
+    const int c0 = 2 * (lane & 3);
+#pragma unroll
+    for (int j = N / 8 - 2; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + c0 + (e & 1) >= g.Sk) s[4 * j + e] = -INFINITY;
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      mx[half] *= g.scale_log2;
+    }
+    // exp(x / sqrt(D) - max / sqrt(D)) as 2^(x c - max c), c = log2(e) / sqrt(D)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[4 * j + e], g.scale_log2, -mx[e >> 1]));
+        s[4 * j + e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
+      sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
+      sum[half] = 1.f / sum[half];
+    }
+    // the accumulators of keys 16i..16i+15 are the A registers of k step i
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i) {
+      pa[i][0] = pack_bf16(s[8 * i + 0] * sum[0], s[8 * i + 1] * sum[0]);
+      pa[i][1] = pack_bf16(s[8 * i + 2] * sum[1], s[8 * i + 3] * sum[1]);
+      pa[i][2] = pack_bf16(s[8 * i + 4] * sum[0], s[8 * i + 5] * sum[0]);
+      pa[i][3] = pack_bf16(s[8 * i + 6] * sum[1], s[8 * i + 7] * sum[1]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[i][e] = 0u;
+  }
+
+  // ---- O = P V: N / 16 k16 steps along the keys, V transposed on read;
+  // a step is 16 rows of V, 2048 bytes ----
+  float o[32];
+  const uint64_t dv = wgmma_desc_sw128(vs, 16, 1024);
+  mbar_wait(v_bar, ph);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < N / 16; ++i)
+    wgmma_rs_n64_tb(o, pa[i], dv + (uint64_t)i * (2048 >> 4), i);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) fence_reg(o[i]);
+#pragma unroll
+  for (int i = 0; i < N / 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_reg(pa[i][e]);
+
+  // ---- O into the group's swizzled staging tile, out by a TMA store
+  // (rows past Sq clipped by the map) ----
+  if (tid == 0) bulk_wait_read();        // the group's last store has read it
+  named_barrier(1 + group, 128);
+  const int r = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    store2(ostg + swizzled(r, 8 * j + c0), o[4 * j], o[4 * j + 1]);
+    store2(ostg + swizzled(r + 8, 8 * j + c0), o[4 * j + 2], o[4 * j + 3]);
+  }
+  fence_async_shared();
+  named_barrier(1 + group, 128);
+  if (tid == 0) {
+    tma_store_4d(omap, ostg, 0, row0, h, b);
+    bulk_commit();
+  }
+}
+
+// Persistent: block i takes heads i, i + gridDim.x, ... Warps 0-7 are two
+// consumer warpgroups, warps 8-11 the producer group, one thread of which
+// keeps the next head's Q, K and V loading into the other stage while the
+// current one is used.
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_tma(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap omap, Geo g) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the 128-byte swizzle needs 1024-byte aligned tiles
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_qk = reinterpret_cast<uint64_t*>(smem);  // Q and K landed
+  uint64_t* full_v = full_qk + kStages;                   // V landed
+  uint64_t* empty = full_v + kStages;
+  unsigned char* stages = smem + 1024;
+  const unsigned stage_bytes = g.q_bytes + 2 * g.kv_bytes;
+  bf16* ostage = reinterpret_cast<bf16*>(stages + kStages * stage_bytes);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_qk[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], kGroups * 4);     // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kGroups * 128) {
+    // ---------------- producer group: one thread issues the loads --------
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kGroups * 128) {
+      int it = 0;
+      for (int item = blockIdx.x; item < g.items; item += gridDim.x, ++it) {
+        const int st = it & 1;
+        const unsigned ph = (it >> 1) & 1;
+        const int b = item / g.H, h = item - b * g.H;
+        unsigned char* buf = stages + st * stage_bytes;
+        mbar_wait(&empty[st], ph ^ 1);
+        // K and Q first: the scores need them, the products with V later
+        mbar_arrive_expect_tx(&full_qk[st], g.q_bytes + g.kv_bytes);
+        tma_load_4d(buf + g.q_bytes, &kmap, 0, 0, h, b, &full_qk[st]);
+        tma_load_4d(buf, &qmap, 0, 0, h, b, &full_qk[st]);
+        mbar_arrive_expect_tx(&full_v[st], g.kv_bytes);
+        tma_load_4d(buf + g.q_bytes + g.kv_bytes, &vmap, 0, 0, h, b, &full_v[st]);
+      }
+    }
+  } else {
+    // ---------------- consumers: group q takes query tiles q, q + 2, ... --
+    setmaxnreg_inc<kConsumerRegs>();
+    const int group = threadIdx.x >> 7;
+    bf16* ostg = ostage + group * kRows * kD;
+    int it = 0;
+    for (int item = blockIdx.x; item < g.items; item += gridDim.x, ++it) {
+      const int st = it & 1;
+      const unsigned ph = (it >> 1) & 1;
+      const int b = item / g.H, h = item - b * g.H;
+      const unsigned char* buf = stages + st * stage_bytes;
+      const bf16* qs = reinterpret_cast<const bf16*>(buf);
+      const bf16* ks = reinterpret_cast<const bf16*>(buf + g.q_bytes);
+      const bf16* vs = reinterpret_cast<const bf16*>(buf + g.q_bytes + g.kv_bytes);
+      mbar_wait(&full_qk[st], ph);
+      for (int qt = group; qt < g.nqt; qt += kGroups)
+        tile<N>(qs + qt * kRows * kD, ks, vs, &full_v[st], ph, ostg, &omap,
+                qt * kRows, b, h, g, group);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    }
+    if ((threadIdx.x & 127) == 0) bulk_wait_all();
+  }
+}
+
+// A bf16 map over the heads of a [B, H, S, 64] view (element strides of
+// s, h and b; D contiguous): dims (D, S, H, B), boxes of 64 x box_rows
+// with the 128-byte swizzle, rows past S read as zeros. Returns false if
+// the driver refuses it.
+bool make_head_map(CUtensorMap* map, const void* p, int B, int H, int S,
+                   long long s_stride, long long h_stride, long long b_stride,
+                   int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_stride * 2, (cuuint64_t)h_stride * 2,
+                                 (cuuint64_t)b_stride * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kD, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int N>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           const CUtensorMap& om, const Geo& g, cudaStream_t st) {
+  // once per instantiation: the largest shared memory any launch asks for
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_tma<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int grid = g.items < num_sms() ? g.items : num_sms();
+  attention_tma<N><<<grid, kThreads, smem_bytes(g.nqt, N), st>>>(qm, km, vm, om, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tma
+
 // =================================================================== fp32
 
 constexpr int kWarps32 = 8;
@@ -425,4 +742,49 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
   else
     attention_bf16<128><<<grid, g.qt * 32, smem, st>>>(qq, kk, vv, oo, g);
   return (int)cudaGetLastError();
+}
+
+
+// The long-row bf16 route (TMA + wgmma): D = 64, 64 <= Sk <= 256,
+// 1 <= Sq <= 256, every base address and stride of q, k and v a multiple
+// of 16 bytes (checked by the Python wrapper, which routes). Arguments as
+// attention_forward's; dtype must be 1.
+extern "C" int attention_forward_tma(const void* q, const void* k, const void* v,
+                                     void* o, int B, int H, int Sq, int Sk, int D,
+                                     long long q0, long long q1, long long q2,
+                                     long long k0, long long k1, long long k2,
+                                     long long v0, long long v1, long long v2,
+                                     int dtype, void* stream) {
+  if (dtype != 1 || D != tma::kD || Sq < 1 || Sq > tma::kMaxS || Sk < 64 ||
+      Sk > tma::kMaxS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int N = round16(Sk), nqt = (Sq + tma::kRows - 1) / tma::kRows;
+  const long long orow = (long long)H * D;            // o is [B, Sq, H, D]
+  CUtensorMap qm, km, vm, om;
+  if (!tma::make_head_map(&qm, q, B, H, Sq, q2, q1, q0, nqt * tma::kRows) ||
+      !tma::make_head_map(&km, k, B, H, Sk, k2, k1, k0, N) ||
+      !tma::make_head_map(&vm, v, B, H, Sk, v2, v1, v0, N) ||
+      !tma::make_head_map(&om, o, B, H, Sq, orow, D, (long long)Sq * orow,
+                          tma::kRows))
+    return (int)cudaErrorInvalidValue;
+  const tma::Geo g{B * H, H, Sq, Sk, nqt,
+                   (unsigned)(nqt * tma::kTileBytes), (unsigned)(N * tma::kD * 2),
+                   1.4426950408889634f / sqrtf((float)D)};
+  switch (N) {
+    case 64: return tma::launch<64>(qm, km, vm, om, g, st);
+    case 80: return tma::launch<80>(qm, km, vm, om, g, st);
+    case 96: return tma::launch<96>(qm, km, vm, om, g, st);
+    case 112: return tma::launch<112>(qm, km, vm, om, g, st);
+    case 128: return tma::launch<128>(qm, km, vm, om, g, st);
+    case 144: return tma::launch<144>(qm, km, vm, om, g, st);
+    case 160: return tma::launch<160>(qm, km, vm, om, g, st);
+    case 176: return tma::launch<176>(qm, km, vm, om, g, st);
+    case 192: return tma::launch<192>(qm, km, vm, om, g, st);
+    case 208: return tma::launch<208>(qm, km, vm, om, g, st);
+    case 224: return tma::launch<224>(qm, km, vm, om, g, st);
+    case 240: return tma::launch<240>(qm, km, vm, om, g, st);
+    case 256: return tma::launch<256>(qm, km, vm, om, g, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -128,53 +128,6 @@ struct Geo {
   int H, W, Cin, Cw, Cout, Ho, Wo, has_ds, tiles_w, tiles_img, tiles, stages;
 };
 
-// A 4-D tensor-map store (dims c, w, h, b) from shared memory, in the
-// thread's bulk group; coordinates outside the tensor are not written.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src,
-                                             int c, int w, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
-      "[%0, {%1, %2, %3, %4}], [%5];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(b),
-         "r"(smem_addr(src))
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Wait until the thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// Wait until the thread's bulk stores are complete.
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// Order this thread's shared-memory writes before later bulk copies.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Element (m, n) of a [rows][64] bf16 tile that a tensor map with the
-// 128-byte swizzle reads or writes: 16-byte piece n / 8 of row m sits at
-// piece (n / 8) ^ (m % 8).
-__device__ __forceinline__ int swizzled(int m, int n) {
-  return m * 64 + ((((n >> 3) ^ m) & 7) << 3) + (n & 7);
-}
-
-// A 4-D tensor-map load (dims c, w, h, b) into shared memory, completing on
-// an mbarrier. Coordinates outside the tensor read as zeros.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            int c, int w, int h, int b,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c),
-         "r"(w), "r"(h), "r"(b), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // The [rows, N] product of one warp group layout, summed over K-chunks.
 // 8 warps as WR = 8 / WC row groups of MT m16 tiles and WC column groups of
 // N / WC columns (nt = N / (8 WC) n8 tiles, at most NTMAX).
@@ -469,36 +422,6 @@ bottleneck_bf16(const __grid_constant__ CUtensorMap xmap,
     }
   }
   if (threadIdx.x == 0) bulk_wait_all();
-}
-
-int num_sms() {
-  static int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
-  return sms;
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
-// library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // A bf16 map over pixels of x [B, H, W, C] (NHWC), every `step`-th row and

@@ -1,25 +1,39 @@
-"""Fused unmasked attention: a hand-written CUDA kernel and its plain version.
+"""Fused unmasked attention: hand-written CUDA kernels and their plain version.
 
 Counterpart of ``t5_resnet_vqa_tpu/ops/pallas/attention.py``:
 ``fused_attention`` here stands for both ``fused_attention`` (:77) and
 ``fused_attention_grad_safe`` (:139) there. For a CUDA tensor it launches
-``csrc/attention.cu`` (bf16 on the tensor cores, 16 query rows of one head
-per warp; see the source note for what bounds it and why it is shaped so)
-inside a ``torch.autograd.Function`` whose backward is the VJP of
-``attention_reference``, the counterpart of ``_fas_bwd``. For a CPU tensor
-it returns ``attention_reference``, the same math in plain PyTorch. There is
-no fallback: a CUDA tensor the kernel does not take raises.
+one of the routes of ``csrc/attention.cu`` (see the source note for what
+bounds each and why it is shaped so) inside a ``torch.autograd.Function``
+whose backward is the VJP of ``attention_reference``, the counterpart of
+``_fas_bwd``. For a CPU tensor it returns ``attention_reference``, the same
+math in plain PyTorch. There is no fallback: a CUDA tensor that no route
+takes raises, and so does a failed build or launch.
 
-The kernel reads q, k and v in place: strided [B, H, S, D] views whose last
+``_route`` picks the route by geometry alone:
+
+- ``"wgmma"`` (``attention_forward_tma``): bf16, D = 64, 64 <= Sq, Sk <=
+  256, every base address and stride a positive multiple of 16 bytes (the
+  tensor maps' rule). One pass over the keys with the whole row of scores
+  in registers, TMA loads and stores, ``wgmma`` for both products,
+  persistent blocks. The ViT (S=197) and RoBERTa (S=213) self-attentions
+  take it, their head views included.
+- ``"mma_sync"`` (``attention_forward``, bf16): every other bf16 call, as
+  the SGA blocks' (Sq=16, D=96): ``mma.sync`` tiles of 16 query rows.
+- ``"fp32"`` (``attention_forward``, float32): the check path, on CUDA
+  cores.
+
+The kernels read q, k and v in place: strided [B, H, S, D] views whose last
 dimension is contiguous, such as the head split of a [B, S, H*D] projection,
 as long as every row starts 16-byte aligned (contiguous tensors are always
-taken). It writes its output as a contiguous [B, Sq, H, D] tensor and
-returns the [B, H, Sq, D] view of it, so merging the heads back is a free
+taken). They write the output as a contiguous [B, Sq, H, D] tensor and
+return the [B, H, Sq, D] view of it, so merging the heads back is a free
 reshape.
 
 ``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel; ``vjps`` counts the backward passes of launched
-kernels (each the plain version's VJP: no kernel is launched there).
+went through the kernels, and ``route_launches`` splits them by route;
+``vjps`` counts the backward passes of launched kernels (each the plain
+version's VJP: no kernel is launched there).
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch
 from . import kernel_build
 
 launches = 0
+route_launches = {"wgmma": 0, "mma_sync": 0, "fp32": 0}
 vjps = 0
 
 _MAX_SK = 256
@@ -40,6 +55,10 @@ _MAX_D = 128
 _WARPS_F32 = 8
 _MAX_SMEM = 232448          # H100: dynamic shared memory one block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_D = 64                 # the wgmma route: one 128-byte swizzled row
+_TMA_MIN_S, _TMA_MAX_S = 64, 256
+_SYMBOLS = {"wgmma": "attention_forward_tma", "mma_sync": "attention_forward",
+            "fp32": "attention_forward"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
 
@@ -112,17 +131,53 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"memory than one block has")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _tma_readable(t: torch.Tensor) -> bool:
+    """A tensor map can read ``t``'s [B, H, S, D] rows in place: D
+    contiguous, the base address and the strides of b, h and s positive
+    multiples of 16 bytes."""
+    size = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(st > 0 and (st * size) % 16 == 0
+                    for st in t.stride()[:3]))
+
+
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes a call ``_check`` accepts, by geometry alone:
+    ``"wgmma"``, ``"mma_sync"`` or ``"fp32"`` (see the module docstring)."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    Sq, Sk, D = q.shape[2], k.shape[2], q.shape[3]
+    if (D == _TMA_D and _TMA_MIN_S <= Sq <= _TMA_MAX_S
+            and _TMA_MIN_S <= Sk <= _TMA_MAX_S
+            and all(_tma_readable(t) for t in (q, k, v))):
+        return "wgmma"
+    return "mma_sync"
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            route: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel of ``_route(q, k, v)``. ``route`` forces one the
+    geometry admits: ``"mma_sync"`` for any bf16 call, so that a check or a
+    timing can hold the two bf16 routes against each other; the main path
+    never passes it."""
     global launches
-    fn = kernel_build.function("attention", "attention_forward", _ARGTYPES)
+    chosen = _route(q, k, v)
+    if route is not None and route != chosen and not (
+            route == "mma_sync" and chosen == "wgmma"):
+        raise ValueError(f"route {route!r} does not take this call "
+                         f"(dtype {q.dtype}, q {tuple(q.shape)}, strides "
+                         f"{q.stride()}); its route is {chosen!r}")
+    route = route or chosen
+    fn = kernel_build.function("attention", _SYMBOLS[route], _ARGTYPES)
     B, H, Sq, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, H, Sq, k.shape[2], D, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], _DTYPES[q.dtype], stream)
-    kernel_build.check(status, "attention_forward")
+    kernel_build.check(status, _SYMBOLS[route])
     launches += 1
+    route_launches[route] += 1
     return out.transpose(1, 2)
 
 

@@ -106,6 +106,96 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
         A.fused_attention(q, q, q)
 
 
+# the wgmma route's shapes: the ViT (S=197) and RoBERTa (S=213)
+# self-attentions, at H=12 and at a tp=2 rank's H=6, and the edges of its
+# range (64 <= Sq, Sk <= 256; Sk not a multiple of 16; one and four query
+# tiles)
+TMA_SHAPES = [
+    (2, 12, 197, 197),
+    (2, 12, 213, 213),
+    (2, 6, 197, 197),
+    (2, 6, 213, 213),
+    (1, 2, 64, 64),
+    (1, 2, 65, 65),
+    (1, 2, 128, 128),
+    (1, 2, 256, 256),
+    (2, 3, 197, 64),
+    (2, 3, 64, 256),
+]
+
+
+def _bf16_inputs(cuda, B, H, Sq, Sk, D, views, seed):
+    """q, k, v in bf16: contiguous [B, H, S, D], or the head views of
+    [B, S, H*D] projections as the main path hands them over."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if not views:
+        return [torch.randn(B, H, s, D, device=cuda, generator=g)
+                .to(torch.bfloat16) for s in (Sq, Sk, Sk)]
+    return [torch.randn(B, s, H * D, device=cuda, generator=g)
+            .to(torch.bfloat16).reshape(B, s, H, D).transpose(1, 2)
+            for s in (Sq, Sk, Sk)]
+
+
+@pytest.mark.parametrize("views", [False, True],
+                         ids=["contiguous", "head_views"])
+@pytest.mark.parametrize("B,H,Sq,Sk", TMA_SHAPES)
+def test_attention_wgmma_route_matches_plain(cuda, views, B, H, Sq, Sk):
+    """The TMA + wgmma route against the plain version, and today's
+    mma.sync route (forced) against it on the same inputs."""
+    q, k, v = _bf16_inputs(cuda, B, H, Sq, Sk, 64, views, seed=8)
+    assert A._route(q, k, v) == "wgmma"
+    before = dict(A.route_launches)
+    got = A.fused_attention(q, k, v)
+    want = A.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert A.route_launches["wgmma"] == before["wgmma"] + 1
+    assert A.route_launches["mma_sync"] == before["mma_sync"]
+    assert got.shape == (B, H, Sq, 64) and got.transpose(1, 2).is_contiguous()
+    assert _rel_err(got, want) <= ATT_TOL["bf16"]
+    old = A._launch(q, k, v, route="mma_sync")
+    assert A.route_launches["mma_sync"] == before["mma_sync"] + 1
+    assert _rel_err(old, want) <= ATT_TOL["bf16"]
+
+
+def test_attention_other_geometries_keep_their_routes(cuda):
+    """The SGA's 16 query rows over 197 keys, D=96, a contiguous tensor
+    whose base is only 4-byte aligned, and fp32 stay off the wgmma route,
+    and each still matches the plain version."""
+    q16, k197, v197 = _bf16_inputs(cuda, 2, 4, 16, 197, 64, True, seed=9)
+    q96, k96, v96 = _bf16_inputs(cuda, 2, 4, 197, 197, 96, False, seed=10)
+    n = 2 * 4 * 197 * 64
+    buf = torch.randn(3 * n + 2, device=cuda).to(torch.bfloat16)
+    shifted = [buf[2 + i * n:2 + (i + 1) * n].view(2, 4, 197, 64)
+               for i in range(3)]
+    fp32 = [t.float() for t in _bf16_inputs(cuda, 2, 4, 197, 197, 64, False,
+                                             seed=11)]
+    for (q, k, v), route in (((q16, k197, v197), "mma_sync"),
+                             ((q96, k96, v96), "mma_sync"),
+                             (shifted, "mma_sync"),
+                             (fp32, "fp32")):
+        assert A._route(q, k, v) == route
+        before = A.route_launches[route]
+        got = A.fused_attention(q, k, v)
+        want = A.attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        assert A.route_launches[route] == before + 1
+        tol = ATT_TOL["fp32" if route == "fp32" else "bf16"]
+        assert _rel_err(got, want) <= tol
+
+
+def test_attention_forced_route_refuses_what_it_does_not_take(cuda):
+    q, k, v = _bf16_inputs(cuda, 2, 4, 16, 64, 96, True, seed=12)
+    with pytest.raises(ValueError):
+        A._launch(q, k, v, route="wgmma")                 # D=96, Sq=16
+    f = [t.float() for t in (q, k, v)]
+    for route in ("wgmma", "mma_sync"):
+        with pytest.raises(ValueError):
+            A._launch(*f, route=route)
+    q, k, v = _bf16_inputs(cuda, 2, 4, 197, 197, 64, True, seed=13)
+    with pytest.raises(ValueError):
+        A._launch(q, k, v, route="fp32")
+
+
 @pytest.mark.parametrize("dtype,name", DTYPES)
 @pytest.mark.parametrize("H,Cin,width,stride,ds", [
     (64, 64, 64, 1, True),      # stage 0 block 0
