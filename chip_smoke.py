@@ -22,11 +22,20 @@ Phases (each raises on failure; nothing is caught):
               module packed once (``Bottleneck.fused``), as on the main
               path, and its line gives the weight bytes the design streams
               from L2 per launch (``weight_stream_mb``, from the shapes).
-              The attention kernel's backward (the VJP of the plain
-              version) is held against autograd of the plain version on
-              head views, and timed (``bwd_ms``), at the SGA shapes, the
-              ViT shape (``vit_bwd_ms``) and the RoBERTa shape
-              (``cross_bwd_ms``).
+              The attention backward (``attention_backward``: the kernel
+              of ``csrc/attention_bwd.cu`` where the forward takes the
+              wgmma route, the plain version's VJP elsewhere) is held
+              against autograd of the plain version on head views, with
+              the gradient as the main path hands it back, one pass
+              counted on its route, at every case; it is timed
+              (``bwd_ms``) in turns with the plain VJP on the kernel's
+              route (plain, kernel, kernel, plain: ``plain_vjp_ms``),
+              beside the plain version's own backward (``plain_bwd_ms``),
+              SDPA's backward on the same views (``library_bwd_ms``) and
+              its bound (``bwd_bound_ms``: q, k, v and the gradient read
+              once, dq, dk and dv written once, 5 products); at the ViT
+              shape (``vit_bwd_ms``) and the RoBERTa shape
+              (``cross_bwd_ms``) among them.
 3. serve   -- the port's main path at full width: ResNet-50 + T5-base
               (12 layers, d_model 768) + 3 SGA blocks (H=8, D=96), 170
               answers, bf16, random weights from a seeded generator, behind
@@ -105,8 +114,10 @@ Phases (each raises on failure; nothing is caught):
               fp32 over 3 on a repeated batch); 2 steps of a fine-tuned
               tower with the kernels on and off (12 kernel forwards per
               step and their backward); then train-step timings of the
-              cached, the cache-off and the fine-tuned variants in turns,
-              and a profile of each.
+              cached, the cache-off and the fine-tuned variants in turns
+              (the fine-tuned step's 12 backward passes through the
+              backward kernel, none through the plain VJP), and a profile
+              of each.
 8. train_frcnn, train_cross -- each family at the same width through
               ``VQATrainer`` for one epoch with the reference config
               (production dropout, B=64, bf16 compute with fp32 master
@@ -114,8 +125,10 @@ Phases (each raises on failure; nothing is caught):
               launches build it from the FPN's pool level, 0 per step, 6
               attention per eval forward); cross-attention with the cache
               off and JAX's log line (24 attention launches per step and
-              per eval forward, and 12 attention VJPs per step: the RoBERTa
-              layers train, the frozen ViT's run without a gradient). Then
+              per eval forward, and 12 attention backward passes per step,
+              all through the backward kernel, counted from 0 over the
+              epoch: the RoBERTa layers train, the frozen ViT's run without
+              a gradient). Then
               the cache on against off (Faster-RCNN), kernels on against
               off at dropout 0 (Faster-RCNN with the cache off: 6 attention
               and 7 bottleneck launches per step; cross: 24), and
@@ -239,13 +252,18 @@ version at the wgmma route's shapes too and times the two in turns (old,
 new, new, old: ``ms`` is the new route's mean, ``mma_sync_ms`` the old
 one's); ``kernel_edges`` holds the bf16 routes at the edges of the wgmma
 route's range (Sq=Sk=64, 65, 128, 256; Sq=197 over 64 keys; Sq=16 over
-197 keys, which keeps ``mma_sync``), contiguous and on head views. The
-serve, serve_vit, serve_frcnn, serve_cross, train timing and mesh lines
-check the launches by route: 6 SGA launches per forward through
-``mma_sync``; 12 per ViT forward, 24 per cross-attention forward, 12 (+ 12
-VJPs) per cache-off (fine-tuned) ViT step, 24 + 12 VJPs per
-cross-attention step and 12 per tp=2 rank's ViT forward through
-``wgmma``.
+197 keys, which keeps ``mma_sync``), contiguous and on head views, and the
+backward there. The serve, serve_vit, serve_frcnn, serve_cross, train
+timing and mesh lines check the launches by route: 6 SGA launches per
+forward through ``mma_sync``; 12 per ViT forward, 24 per cross-attention
+forward, 12 per cache-off or fine-tuned ViT step, 24 per cross-attention
+step and 12 per tp=2 rank's ViT forward through ``wgmma``. The train
+timing lines check the backward passes by route
+(``attention_bwd_routes``): 12 through the backward kernel and none
+through the plain VJP per fine-tuned ViT step and per cross-attention
+step, 6 through the plain VJP per CNN step at dropout 0 (the SGA), none
+elsewhere; each line also gives the step's peak device memory
+(``step_peak_mib``).
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
@@ -283,7 +301,13 @@ D=64, bf16), with ``vit_mma_sync_ms`` the ``mma.sync`` route's time in
 the same turns; ``route_launches``, ``vit_route_launches``,
 ``frcnn_route_launches``, ``cross_route_launches`` and
 ``mesh_vit_route_launches_per_forward_per_rank`` split the attention
-launches of those runs by route. Bounds are the larger of bytes over 3.35
+launches of those runs by route. The ``attention_backward`` entry is the
+backward kernel per launch at the RoBERTa shape (``ms`` against the plain
+VJP's ``plain_ms`` in the same turns, SDPA's backward as ``library_ms``),
+its ``launches`` the count over the cross-attention train epoch, set to 0
+just before it; ``vit_*`` and ``tp2_*`` give the other shapes, and the
+``*_launches_per_step`` keys the passes by route per step of each train
+path. Bounds are the larger of bytes over 3.35
 TB/s and FLOPs over the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32),
 H100 SXM data sheet.
 """
@@ -463,7 +487,7 @@ def phase_build(torch, card):
         raise RuntimeError(f"the kernels are built for sm_90a; this card "
                            f"has compute capability {cap}")
     t0 = time.perf_counter()
-    kernel_build.build(["attention", "bottleneck"])
+    kernel_build.build(["attention", "attention_bwd", "bottleneck"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "device": torch.cuda.get_device_name(0), "card": card,
           "capability": list(cap), "build_dir": kernel_build.BUILD_DIR})
@@ -495,7 +519,8 @@ def phase_attention(torch):
     per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "bytes_ms": 0.0, "ops_ms": 0.0,
                    "library_ms": 0.0, "max_abs_err": 0.0, "bwd_ms": 0.0,
-                   "plain_bwd_ms": 0.0, "bwd_max_abs_err": 0.0}
+                   "plain_bwd_ms": 0.0, "library_bwd_ms": 0.0,
+                   "bwd_bound_ms": 0.0, "bwd_max_abs_err": 0.0}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, B, H, Sq, Sk, D, n_fwd in ATTENTION_CASES:
@@ -558,9 +583,11 @@ def phase_attention(torch):
                     "bound_share": max(t_bytes, t_ops) / ms,
                     "bound_by": bound_by(t_bytes, t_ops), **older}
             # every shape is on a training path: the SGA's at dropout 0,
-            # the ViT's with the cache off or a fine-tuned tower
-            line.update(attention_backward(torch, A, B, H, Sq, Sk, D,
-                                           dtype, dtype_name, name))
+            # the ViT's with the cache off or a fine-tuned tower, RoBERTa's
+            # in every cross-attention step
+            bwd = attention_backward(torch, A, B, H, Sq, Sk, D, dtype,
+                                     dtype_name, name)
+            line.update(bwd)
             emit(line)
             if dtype_name == "bfloat16" and name in PER_LAUNCH_CASES:
                 per_forward[PER_LAUNCH_CASES[name]] = {
@@ -569,15 +596,14 @@ def phase_attention(torch):
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": bound_by(t_bytes, t_ops),
-                    "max_abs_err": abs_err, "bwd_ms": line["bwd_ms"],
-                    "plain_bwd_ms": line["plain_bwd_ms"],
-                    "bwd_max_abs_err": line["bwd_max_abs_err"]}
+                    "max_abs_err": abs_err, **bwd}
             if dtype_name == "bfloat16" and n_fwd:
                 per_forward["ms"] += n_fwd * ms
                 per_forward["plain_ms"] += n_fwd * plain_ms
                 per_forward["library_ms"] += n_fwd * lib_ms
-                per_forward["bwd_ms"] += n_fwd * line["bwd_ms"]
-                per_forward["plain_bwd_ms"] += n_fwd * line["plain_bwd_ms"]
+                for key in ("bwd_ms", "plain_bwd_ms", "library_bwd_ms",
+                            "bwd_bound_ms"):
+                    per_forward[key] += n_fwd * bwd[key]
                 add_bound(per_forward, n_fwd, t_bytes, t_ops)
                 per_forward["max_abs_err"] = max(per_forward["max_abs_err"],
                                                  abs_err)
@@ -595,7 +621,10 @@ EDGE_BATCH, EDGE_HEADS = 8, 12
 
 def phase_attention_edges(torch):
     """The bf16 routes at the edges of the wgmma route's range, contiguous
-    and on head views, against the plain version (ATT_TOL)."""
+    and on head views, against the plain version (ATT_TOL); and the
+    backward there (the kernel where the forward takes the wgmma route, the
+    plain VJP elsewhere, one pass counted on its route) against the plain
+    VJP, the gradient as the main path hands it back."""
     from t5_resnet_vqa_torch.ops import attention as A
 
     cases = []
@@ -623,44 +652,111 @@ def phase_attention_edges(torch):
                 raise AssertionError(
                     f"attention edge Sq={Sq} Sk={Sk} views={views}: max-abs "
                     f"error {a} ({r} of max|ref|) > {ATT_TOL['bfloat16']}")
+            grad_out = torch.randn(EDGE_BATCH, Sq, EDGE_HEADS, 64,
+                                   device=DEVICE, generator=g) \
+                .to(torch.bfloat16).transpose(1, 2)
+            bwd_route = "wgmma" if want_route == "wgmma" else "plain"
+            before = dict(A.bwd_route_launches)
+            grads = A.attention_backward(q, k, v, grad_out)
+            torch.cuda.synchronize()
+            check_bwd_routes(f"attention backward edge Sq={Sq} Sk={Sk}",
+                             bwd_routes_since(A, before), {bwd_route: 1})
+            bwd_a = bwd_r = 0.0
+            for grad, ref in zip(grads, A.attention_backward(
+                    q, k, v, grad_out, route="plain")):
+                ga, gr = rel_err(grad, ref)
+                if not gr <= ATT_TOL["bfloat16"]:
+                    raise AssertionError(
+                        f"attention backward edge Sq={Sq} Sk={Sk} "
+                        f"views={views}: max-abs error {ga} ({gr} of "
+                        f"max|ref|) > {ATT_TOL['bfloat16']}")
+                bwd_a, bwd_r = max(bwd_a, ga), max(bwd_r, gr)
             cases.append({"Sq": Sq, "Sk": Sk, "head_views": views,
                           "route": want_route, "max_abs_err": a,
-                          "rel_err": r})
+                          "rel_err": r, "bwd_route": bwd_route,
+                          "bwd_max_abs_err": bwd_a, "bwd_rel_err": bwd_r})
     emit({"phase": "kernel_edges", "kernel": "attention", "dtype": "bfloat16",
           "batch": EDGE_BATCH, "heads": EDGE_HEADS, "D": 64,
           "tol": ATT_TOL["bfloat16"], "cases": cases})
 
 
+def bwd_routes_since(A, before: dict) -> dict:
+    """Attention backward passes by route since ``before`` (a copy of
+    ``A.bwd_route_launches``); routes with none are left out."""
+    return {r: n - before.get(r, 0) for r, n in A.bwd_route_launches.items()
+            if n != before.get(r, 0)}
+
+
+def check_bwd_routes(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: attention backward passes by route "
+                             f"{got}, expected {want}")
+
+
 def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
-    """The kernel's backward (the VJP of the plain version) through the
-    head views of [B, S, H*D] projections, as the SGA blocks and the ViT
-    hand them over,
-    against ``torch.autograd.grad`` of the plain version on the same inputs;
-    with the device ms of each backward (the graph kept and run again)."""
+    """Kernel 1's backward on the head views of [B, S, H*D] projections,
+    with the output's gradient as the main path hands it back (the
+    [B, H, Sq, D] view of a contiguous [B, Sq, H, D]): the route's backward
+    (``A.attention_backward``: the kernel where the forward takes the wgmma
+    route, the plain VJP elsewhere) against the plain version's own backward
+    (autograd of ``attention_reference``) within ATT_TOL, one pass counted on
+    its route; the device ms of the route's backward and of the plain VJP
+    (the forced "plain" route; on the kernel's route the two in turns:
+    plain, kernel, kernel, plain), of the plain version's own backward and
+    of SDPA's backward on the same views, and the bound: q, k, v and the
+    gradient read once, dq, dk and dv written once, 5 products."""
+    import torch.nn.functional as F
+
     g = torch.Generator(device=DEVICE).manual_seed(6)
-    projections = [torch.randn(B, s, H * D, device=DEVICE,
-                               generator=g).to(dtype) for s in (Sq, Sk, Sk)]
-    grad_out = torch.randn(B, H, Sq, D, device=DEVICE, generator=g).to(dtype)
+    q, k, v = (torch.randn(B, s, H * D, device=DEVICE, generator=g).to(dtype)
+               .reshape(B, s, H, D).transpose(1, 2) for s in (Sq, Sk, Sk))
+    grad_out = torch.randn(B, Sq, H, D, device=DEVICE, generator=g) \
+        .to(dtype).transpose(1, 2)
+    route = A._bwd_route(q, k, v)
 
     def graph(fn):
-        leaves = [p.clone().requires_grad_() for p in projections]
-        out = fn(*(x.reshape(B, -1, H, D).transpose(1, 2) for x in leaves))
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
         return lambda: torch.autograd.grad(out, leaves, grad_out,
                                            retain_graph=True)
 
-    kernel_bwd, plain_bwd = graph(A.fused_attention), \
-        graph(A.attention_reference)
+    before = dict(A.bwd_route_launches)
+    got = A.attention_backward(q, k, v, grad_out)
+    torch.cuda.synchronize()
+    check_bwd_routes(f"attention backward {name} {dtype_name}",
+                     bwd_routes_since(A, before), {route: 1})
+    plain_bwd = graph(A.attention_reference)
     abs_err = rel = 0.0
-    for got, want in zip(kernel_bwd(), plain_bwd()):
-        a, r = rel_err(got, want)
+    for grad, want in zip(got, plain_bwd()):
+        a, r = rel_err(grad, want)
         if not r <= ATT_TOL[dtype_name]:
             raise AssertionError(
                 f"attention backward {name} {dtype_name}: max-abs error "
                 f"{a} ({r} of max|ref|) > {ATT_TOL[dtype_name]}")
         abs_err, rel = max(abs_err, a), max(rel, r)
-    return {"bwd_max_abs_err": abs_err, "bwd_rel_err": rel,
-            "bwd_ms": device_ms(torch, kernel_bwd),
-            "plain_bwd_ms": device_ms(torch, plain_bwd)}
+    out = {"bwd_route": route, "bwd_max_abs_err": abs_err,
+           "bwd_rel_err": rel}
+    if route == "wgmma":
+        fns = (lambda: A.attention_backward(q, k, v, grad_out,
+                                            route="plain"),
+               lambda: A.attention_backward(q, k, v, grad_out))
+        turns = [device_ms(torch, fns[i]) for i in (0, 1, 1, 0)]
+        out.update({"bwd_ms": (turns[1] + turns[2]) / 2,
+                    "plain_vjp_ms": (turns[0] + turns[3]) / 2,
+                    "bwd_turns_ms": turns})
+    else:
+        out["bwd_ms"] = out["plain_vjp_ms"] = device_ms(
+            torch, lambda: A.attention_backward(q, k, v, grad_out))
+    out["plain_bwd_ms"] = device_ms(torch, plain_bwd)
+    out["library_bwd_ms"] = device_ms(
+        torch, graph(F.scaled_dot_product_attention))
+    nbytes = (3 * Sq + 4 * Sk) * B * H * D * q.element_size()
+    t_bytes, t_ops = bound_terms(nbytes, 10.0 * B * H * Sq * Sk * D,
+                                 dtype_name)
+    out.update({"bwd_bound_ms": max(t_bytes, t_ops),
+                "bwd_bound_by": bound_by(t_bytes, t_ops),
+                "bwd_bound_share": max(t_bytes, t_ops) / out["bwd_ms"]})
+    return out
 
 
 BLOCK_CASES = [    # name, H, Cin, width, stride, downsample, launches/forward
@@ -1707,6 +1803,15 @@ def phase_train(torch, card):
             _build_model(torch, torch.float32, flag), torch.device(DEVICE),
             torch.bfloat16).train() for flag in (True, False)}
         time_pair(models, True, TRAIN_ROUNDS)
+        # the SGA's backward passes: the plain VJP (D=96), only at dropout 0
+        # (production SGA dropout takes the plain path both ways)
+        for dropout, want in ((False, {"plain": 6}), (True, {})):
+            for label, bwd in (("kernels_on", want), ("kernels_off", {})):
+                check_bwd_routes(
+                    f"CNN {label} train step, dropout "
+                    f"{'production' if dropout else 0}",
+                    timing[dropout][label]["launches_per_step"]
+                    ["attention_bwd_routes"], bwd)
         del models
         torch.cuda.empty_cache()
     finally:
@@ -1722,6 +1827,8 @@ def phase_train(torch, card):
                 timing[True]["kernels_on"]["launches_per_step"][name],
             "cache_off_dropout_0":
                 timing[False]["kernels_on"]["launches_per_step"][name]}
+    per_step["attention"]["cache_off_dropout_0_bwd_routes"] = timing[False][
+        "kernels_on"]["launches_per_step"]["attention_bwd_routes"]
     return {"epoch": epoch["launches"], "per_step": per_step}
 
 
@@ -1780,16 +1887,15 @@ def phase_train_vit(torch, card):
                 torch.device(DEVICE), torch.bfloat16).train(), batches[0])}
         timing = train_timing(torch, cfg, variants, card, "train_vit_timing",
                               True, TRAIN_ROUNDS)
-        for label, want in (("cached", ({}, 0)),
-                            ("cache_off", ({"wgmma": 12}, 0)),
-                            ("fine_tuned", ({"wgmma": 12}, 12))):
+        # the fine-tuned tower's 12 backward passes take the kernel
+        for label, want in (("cached", ({}, {})),
+                            ("cache_off", ({"wgmma": 12}, {})),
+                            ("fine_tuned", ({"wgmma": 12}, {"wgmma": 12}))):
             got = timing[label]["launches_per_step"]
             check_routes(f"ViT {label} train step", got["attention_routes"],
                          want[0])
-            if got["attention_vjps"] != want[1]:
-                raise AssertionError(f"ViT {label} train step: "
-                                     f"{got['attention_vjps']} attention "
-                                     f"VJPs, expected {want[1]}")
+            check_bwd_routes(f"ViT {label} train step",
+                             got["attention_bwd_routes"], want[1])
         del variants, reloaded
         torch.cuda.empty_cache()
     finally:
@@ -1801,6 +1907,8 @@ def phase_train_vit(torch, card):
             "eval_forward_cached": epoch["launches_per_eval_forward"][name],
             **{label: timing[label]["launches_per_step"][name]
                for label in ("cached", "cache_off", "fine_tuned")}}
+    per_step["attention"]["fine_tuned_bwd_routes"] = \
+        timing["fine_tuned"]["launches_per_step"]["attention_bwd_routes"]
     emit({"phase": "train_vit", "card": card,
           "seconds": time.perf_counter() - t_phase})
     return {"epoch": epoch["launches"], "per_step": per_step}
@@ -1834,14 +1942,17 @@ def phase_train_family(torch, card, family):
                       "eval": (24, 0)}
             log_lines = ("Frozen-feature cache: off (CrossAttentionVitVQA"
                          "Model has no separable frozen tower)",)
-        v0 = A.vjps
+        # the backward's counts from 0 just before the main path's epoch:
+        # the cross-attention family's 12 RoBERTa layers each take the
+        # kernel's backward once per train step
+        A.bwd_route_launches.update({r: 0 for r in A.bwd_route_launches})
         reloaded, epoch = train_epoch(torch, cfg, build, data, expect,
                                       log_lines)
-        epoch["attention_vjps"] = A.vjps - v0
-        want_vjps = 12 * TRAIN_BATCHES if family == "cross" else 0
-        if epoch["attention_vjps"] != want_vjps:
-            raise AssertionError(f"{family} epoch: {epoch['attention_vjps']}"
-                                 f" attention VJPs, expected {want_vjps}")
+        epoch["attention_bwd_routes"] = {
+            r: n for r, n in A.bwd_route_launches.items() if n}
+        check_bwd_routes(f"{family} epoch", epoch["attention_bwd_routes"],
+                         {"wgmma": 12 * TRAIN_BATCHES}
+                         if family == "cross" else {})
         emit({"phase": f"train_{family}_epoch", "card": card,
               "model": spec["model"], "answers": ANSWERS,
               "dtype": "bfloat16 compute, fp32 master weights",
@@ -1872,16 +1983,16 @@ def phase_train_family(torch, card, family):
                               f"train_{family}_timing", True,
                               FAMILY_TRAIN_ROUNDS)
         # production dropout: the SGA's attention takes the plain path, the
-        # cross-attention family's 24 launches and 12 VJPs the wgmma route
+        # cross-attention family's 24 launches and 12 backward passes the
+        # wgmma route and the backward kernel
         for label in timing:
             got = timing[label]["launches_per_step"]
-            want = ({"wgmma": 24}, 12) if family == "cross" else ({}, 0)
+            want = (({"wgmma": 24}, {"wgmma": 12}) if family == "cross"
+                    else ({}, {}))
             check_routes(f"{family} {label} train step",
                          got["attention_routes"], want[0])
-            if got["attention_vjps"] != want[1]:
-                raise AssertionError(f"{family} {label} train step: "
-                                     f"{got['attention_vjps']} attention "
-                                     f"VJPs, expected {want[1]}")
+            check_bwd_routes(f"{family} {label} train step",
+                             got["attention_bwd_routes"], want[1])
         del variants, reloaded
         torch.cuda.empty_cache()
     finally:
@@ -1897,11 +2008,13 @@ def phase_train_family(torch, card, family):
                 parity["bfloat16"]["launches_per_step_on"]))[name],
             **{label: timing[label]["launches_per_step"][name]
                for label in timing}}
-    per_step["attention"]["vjps_per_production_step"] = \
-        epoch["attention_vjps"] // TRAIN_BATCHES
+    per_step["attention"]["bwd_routes_per_production_step"] = {
+        r: n // TRAIN_BATCHES
+        for r, n in epoch["attention_bwd_routes"].items()}
     emit({"phase": f"train_{family}", "card": card,
           "seconds": time.perf_counter() - t_phase})
-    return {"epoch": epoch["launches"], "per_step": per_step}
+    return {"epoch": epoch["launches"], "per_step": per_step,
+            "epoch_bwd_routes": epoch["attention_bwd_routes"]}
 
 
 def _steps(torch, cfg, model, dtype, batches, total):
@@ -2036,7 +2149,10 @@ def train_timing(torch, cfg, variants, card, phase, dropout,
                  rounds=TRAIN_ROUNDS):
     """Median train-step ms of each variant (``{label: (model, batch)}``) in
     turns (CUDA events; each step ends in a synchronisation that reads the
-    loss), its kernels' launches per step, and each one's device busy ms
+    loss), its kernels' launches per step (the attention backward passes by
+    route among them), the peak device memory of one step
+    (``torch.cuda.max_memory_allocated``, and above what was held before
+    it), and each one's device busy ms
     and kernel launches per step (the vision tower where the batch has
     images, the text encoder, the forward, the whole step; backward +
     optimizer = step - forward) and the device's idle share over
@@ -2063,11 +2179,16 @@ def train_timing(torch, cfg, variants, card, phase, dropout,
             times[label].append(step_ms(torch, steps[label]))
     result = {}
     for label, (model, batch) in variants.items():
-        a0, k0, v0, r0 = A.launches, K.launches, A.vjps, route_counts(A)
+        a0, k0, r0 = A.launches, K.launches, route_counts(A)
+        b0 = dict(A.bwd_route_launches)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         steps[label]()
+        peak = torch.cuda.max_memory_allocated()
         counts = {"attention": A.launches - a0, "bottleneck": K.launches - k0,
-                  "attention_vjps": A.vjps - v0,
-                  "attention_routes": routes_since(A, r0)}
+                  "attention_routes": routes_since(A, r0),
+                  "attention_bwd_routes": bwd_routes_since(A, b0)}
         median = float(np.median(times[label]))
         line = {"phase": phase, "config": label, "card": card,
                 "dropout": "production" if dropout else 0.0,
@@ -2075,7 +2196,10 @@ def train_timing(torch, cfg, variants, card, phase, dropout,
                 "train_step_ms": median,
                 "train_samples_per_s": BATCH / (median / 1e3),
                 "fastest_step_ms": float(min(times[label])),
-                "launches_per_step": counts, "steps_ms": times[label]}
+                "launches_per_step": counts,
+                "step_peak_mib": peak / 2**20,
+                "step_peak_above_held_mib": (peak - held) / 2**20,
+                "steps_ms": times[label]}
         line.update(train_breakdown(torch, model, batch, steps[label]))
         emit(line)
         result[label] = {k: v for k, v in line.items() if k != "steps_ms"}
@@ -3971,6 +4095,8 @@ def main() -> int:
         kernels[0].update({f"{case}_{k}": v for k, v in att[case].items()})
     kernels[0].update({"bwd_ms": att["bwd_ms"],
                        "plain_bwd_ms": att["plain_bwd_ms"],
+                       "library_bwd_ms": att["library_bwd_ms"],
+                       "bwd_bound_ms": att["bwd_bound_ms"],
                        "bwd_max_abs_err": att["bwd_max_abs_err"],
                        "vit_launches": vit_launches["attention"],
                        "vit_route": vit["route"],
@@ -3984,9 +4110,43 @@ def main() -> int:
                        "vit_bound_by": vit["bound_by"],
                        "vit_library_ms": vit["library_ms"],
                        "vit_max_abs_err": vit["max_abs_err"],
-                       "vit_bwd_ms": vit["bwd_ms"],
-                       "vit_plain_bwd_ms": vit["plain_bwd_ms"],
-                       "vit_bwd_max_abs_err": vit["bwd_max_abs_err"]})
+                       **{f"vit_{k}": v for k, v in vit.items()
+                          if k.startswith(("bwd", "plain_bwd", "plain_vjp",
+                                           "library_bwd"))}})
+    # kernel 1's backward: per launch at the RoBERTa shape, whose 12 layers
+    # train in every cross-attention step; its launches are the count over
+    # the cross-attention epoch, from 0 just before it
+    wgmma_cases = [att[c] for c in ("vit", "cross", "tp2_vit_s197",
+                                    "tp2_cross_s213")]
+    kernels.append({
+        "name": "attention_backward", "route": "cuda",
+        "source": "t5_resnet_vqa_torch/csrc/attention_bwd.cu",
+        "replaces": "t5_resnet_vqa_tpu/ops/pallas/attention.py:156",
+        "launches": family_train["cross"]["epoch_bwd_routes"].get("wgmma", 0),
+        "launches_counted_over": f"cross-attention train epoch "
+                                 f"({TRAIN_BATCHES} steps)",
+        "max_abs_err": max(c["bwd_max_abs_err"] for c in wgmma_cases),
+        "ms": cross["bwd_ms"], "plain_ms": cross["plain_vjp_ms"],
+        "bound_ms": cross["bwd_bound_ms"],
+        "bound_share": cross["bwd_bound_ms"] / cross["bwd_ms"],
+        "bound_by": cross["bwd_bound_by"],
+        "library_ms": cross["library_bwd_ms"],
+        "shape": [BATCH, 12, CROSS_SEQ, CROSS_SEQ, 64],
+        "turns_ms": cross["bwd_turns_ms"],
+        "plain_own_backward_ms": cross["plain_bwd_ms"],
+        **{f"{case}_{k}": att[case][key]
+           for case in ("vit", "tp2_vit_s197", "tp2_cross_s213")
+           for k, key in (("ms", "bwd_ms"), ("plain_ms", "plain_vjp_ms"),
+                          ("library_ms", "library_bwd_ms"),
+                          ("bound_ms", "bwd_bound_ms"),
+                          ("max_abs_err", "bwd_max_abs_err"))},
+        "cross_train_launches_per_step":
+            family_train["cross"]["per_step"]["attention"]
+            ["bwd_routes_per_production_step"],
+        "vit_fine_tuned_launches_per_step":
+            train_vit["per_step"]["attention"]["fine_tuned_bwd_routes"],
+        "cnn_dropout_0_launches_per_step":
+            train["per_step"]["attention"]["cache_off_dropout_0_bwd_routes"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -354,12 +354,6 @@ inline size_t smem_bytes(int nqt, int N) {
   return 2048 + kStages * stage + kGroups * kTileBytes;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One 64-row query tile of a head, by one consumer warpgroup: S = Q K^T,
 // the softmax of each row, P V, and the tile out by a TMA store. qs, ks
 // and vs are the swizzled tiles in shared memory (Q and K landed, V
@@ -547,27 +541,6 @@ attention_tma(const __grid_constant__ CUtensorMap qmap,
     }
     if ((threadIdx.x & 127) == 0) bulk_wait_all();
   }
-}
-
-// A bf16 map over the heads of a [B, H, S, 64] view (element strides of
-// s, h and b; D contiguous): dims (D, S, H, B), boxes of 64 x box_rows
-// with the 128-byte swizzle, rows past S read as zeros. Returns false if
-// the driver refuses it.
-bool make_head_map(CUtensorMap* map, const void* p, int B, int H, int S,
-                   long long s_stride, long long h_stride, long long b_stride,
-                   int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_stride * 2, (cuuint64_t)h_stride * 2,
-                                 (cuuint64_t)b_stride * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kD, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int N>
@@ -762,11 +735,11 @@ extern "C" int attention_forward_tma(const void* q, const void* k, const void* v
   const int N = round16(Sk), nqt = (Sq + tma::kRows - 1) / tma::kRows;
   const long long orow = (long long)H * D;            // o is [B, Sq, H, D]
   CUtensorMap qm, km, vm, om;
-  if (!tma::make_head_map(&qm, q, B, H, Sq, q2, q1, q0, nqt * tma::kRows) ||
-      !tma::make_head_map(&km, k, B, H, Sk, k2, k1, k0, N) ||
-      !tma::make_head_map(&vm, v, B, H, Sk, v2, v1, v0, N) ||
-      !tma::make_head_map(&om, o, B, H, Sq, orow, D, (long long)Sq * orow,
-                          tma::kRows))
+  if (!make_head_map(&qm, q, B, H, Sq, q2, q1, q0, nqt * tma::kRows) ||
+      !make_head_map(&km, k, B, H, Sk, k2, k1, k0, N) ||
+      !make_head_map(&vm, v, B, H, Sk, v2, v1, v0, N) ||
+      !make_head_map(&om, o, B, H, Sq, orow, D, (long long)Sq * orow,
+                     tma::kRows))
     return (int)cudaErrorInvalidValue;
   const tma::Geo g{B * H, H, Sq, Sk, nqt,
                    (unsigned)(nqt * tma::kTileBytes), (unsigned)(N * tma::kD * 2),

@@ -1,8 +1,9 @@
 // Helpers shared by the package's kernels (sm_90a): asynchronous copies
 // (cp.async, and cp.async.bulk on mbarriers: tensor-map (TMA) loads and
-// stores with the driver's map encoder), bf16 tensor-core fragments
-// (ldmatrix and mma.sync m16n8k16), warpgroup products (wgmma, its
-// shared-memory matrix descriptors and fences), and small conversions.
+// stores with the driver's map encoder, and the maps of attention heads),
+// bf16 tensor-core fragments (ldmatrix and mma.sync m16n8k16), warpgroup
+// products (wgmma, its shared-memory matrix descriptors and fences), and
+// small conversions.
 //
 // ops/kernel_build.py hashes every csrc/*.cuh into each library's name, so
 // an edit here rebuilds every kernel that includes this file.
@@ -147,6 +148,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A bf16 map over the heads of a [B, H, S, 64] view (element strides of
+// s, h and b; D = 64 contiguous, one 128-byte row): dims (D, S, H, B),
+// boxes of 64 x box_rows with the 128-byte swizzle, rows past S read as
+// zeros and not written. Returns false if the driver refuses it.
+inline bool make_head_map(CUtensorMap* map, const void* p, int B, int H, int S,
+                          long long s_stride, long long h_stride,
+                          long long b_stride, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_stride * 2, (cuuint64_t)h_stride * 2,
+                                 (cuuint64_t)b_stride * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The current device's SM count: the grid of a persistent kernel.
 inline int num_sms() {
   static int sms = [] {
@@ -274,7 +295,7 @@ __device__ __forceinline__ void fence_reg(unsigned& r) {
 
 // d[N/2] = A (64x16, K-major, descriptor a) * B (16xN, K-major, descriptor
 // b) + (scale_d ? d : 0), bf16 in, fp32 out; N a multiple of 16 in
-// [64, 256]. G = N / 16 groups of 8 accumulators; the descriptors and
+// [16, 256]. G = N / 16 groups of 8 accumulators; the descriptors and
 // scale_d are operands G*8, G*8 + 1 and G*8 + 2.
 template <int N> struct WgmmaSS;
 #define SM90_WGMMA_SS(G, N, A, B, S)                                           \
@@ -288,6 +309,9 @@ template <int N> struct WgmmaSS;
                    : "l"(a), "l"(b), "r"(scale_d));                            \
     }                                                                          \
   };
+SM90_WGMMA_SS(1, 16, 8, 9, 10)
+SM90_WGMMA_SS(2, 32, 16, 17, 18)
+SM90_WGMMA_SS(3, 48, 24, 25, 26)
 SM90_WGMMA_SS(4, 64, 32, 33, 34)
 SM90_WGMMA_SS(5, 80, 40, 41, 42)
 SM90_WGMMA_SS(6, 96, 48, 49, 50)
@@ -313,6 +337,13 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const unsigned (
                "{" SM90_REGS_4 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
                : SM90_ACCS_4
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// 2^x on the SFU (ex2.approx: a few ulp, flushed to zero below 2^-126).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

@@ -5,10 +5,10 @@ Counterpart of ``t5_resnet_vqa_tpu/ops/pallas/attention.py``:
 ``fused_attention_grad_safe`` (:139) there. For a CUDA tensor it launches
 one of the routes of ``csrc/attention.cu`` (see the source note for what
 bounds each and why it is shaped so) inside a ``torch.autograd.Function``
-whose backward is the VJP of ``attention_reference``, the counterpart of
-``_fas_bwd``. For a CPU tensor it returns ``attention_reference``, the same
-math in plain PyTorch. There is no fallback: a CUDA tensor that no route
-takes raises, and so does a failed build or launch.
+whose backward is ``attention_backward`` (below). For a CPU tensor it
+returns ``attention_reference``, the same math in plain PyTorch. There is
+no fallback: a CUDA tensor that no route takes raises, and so does a
+failed build or launch.
 
 ``_route`` picks the route by geometry alone:
 
@@ -31,9 +31,26 @@ return the [B, H, Sq, D] view of it, so merging the heads back is a free
 reshape.
 
 ``launches`` counts kernel launches, so a run can show that its main path
-went through the kernels, and ``route_launches`` splits them by route;
-``vjps`` counts the backward passes of launched kernels (each the plain
-version's VJP: no kernel is launched there).
+went through the kernels, and ``route_launches`` splits them by route.
+
+The backward (``attention_backward``, the counterpart of ``_fas_bwd`` at
+:156 there) has two routes, picked by ``_bwd_route`` on the same geometry:
+
+- ``"wgmma"`` (``attention_backward_tma`` in ``csrc/attention_bwd.cu``):
+  wherever the forward takes the ``"wgmma"`` route. dQ, dK and dV in one
+  kernel, rounded where autograd of ``attention_reference`` rounds them
+  (see the source note). The gradient is read in place when a tensor map
+  can read it, as the [B, H, Sq, D] view of a contiguous [B, Sq, H, D] that
+  the callers' head merge hands back; any other gradient is made
+  contiguous first, and ``bwd_grad_copies`` counts those copies. dQ, dK and
+  dV come back as [B, H, S, D] views of contiguous [B, S, H, D] tensors.
+- ``"plain"``: the VJP of ``attention_reference``, recomputed from q, k
+  and v. Every other CUDA call takes it: the SGA (D=96, whose VJP runs only
+  at dropout 0, since production SGA dropout takes the plain path both
+  ways) and the fp32 check path.
+
+``bwd_route_launches`` counts the CUDA backward passes by route; CPU
+tensors take the plain VJP and count nothing.
 """
 
 from __future__ import annotations
@@ -48,7 +65,8 @@ from . import kernel_build
 
 launches = 0
 route_launches = {"wgmma": 0, "mma_sync": 0, "fp32": 0}
-vjps = 0
+bwd_route_launches = {"wgmma": 0, "plain": 0}
+bwd_grad_copies = 0
 
 _MAX_SK = 256
 _MAX_D = 128
@@ -61,6 +79,9 @@ _SYMBOLS = {"wgmma": "attention_forward_tma", "mma_sync": "attention_forward",
             "fp32": "attention_forward"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
+_BWD_SYMBOL = "attention_backward_tma"
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,6 +202,86 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward's route for a call ``_check`` accepts, by geometry
+    alone: ``"wgmma"`` where the forward takes the ``"wgmma"`` route, else
+    ``"plain"`` (see the module docstring)."""
+    return "wgmma" if _route(q, k, v) == "wgmma" else "plain"
+
+
+def _forced_bwd_route(q, k, v, route: Optional[str]) -> str:
+    """``route`` where the geometry admits it (``"plain"`` always), else
+    ``_bwd_route``'s choice when ``route`` is None; raises otherwise."""
+    chosen = _bwd_route(q, k, v)
+    if route is not None and route not in (chosen, "plain"):
+        raise ValueError(f"backward route {route!r} does not take this call "
+                         f"(dtype {q.dtype}, q {tuple(q.shape)}, strides "
+                         f"{q.stride()}); its route is {chosen!r}")
+    return route or chosen
+
+
+def _plain_vjp(q, k, v, g):
+    """The VJP of ``attention_reference`` at (q, k, v), recomputed."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention_reference(qq, kk, vv)
+        return torch.autograd.grad(out, (qq, kk, vv), g)
+
+
+def _readable_grad(g: torch.Tensor) -> torch.Tensor:
+    """``g`` itself where a tensor map can read it, else a contiguous copy
+    in a fresh, aligned buffer (counted in ``bwd_grad_copies``)."""
+    global bwd_grad_copies
+    if _tma_readable(g):
+        return g
+    bwd_grad_copies += 1
+    return g.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_bwd(q, k, v, g):
+    """Launch the backward kernel: (dq, dk, dv) as [B, H, S, D] views of
+    contiguous [B, S, H, D] tensors."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"the gradient must match the output: got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}, "
+                         f"expected {tuple(q.shape)} {q.dtype} on {q.device}")
+    g = _readable_grad(g)
+    fn = kernel_build.function("attention_bwd", _BWD_SYMBOL, _BWD_ARGTYPES)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, D,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *g.stride()[:3], _DTYPES[q.dtype], stream)
+    kernel_build.check(status, _BWD_SYMBOL)
+    bwd_route_launches["wgmma"] += 1
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       g: torch.Tensor, route: Optional[str] = None):
+    """(dq, dk, dv): the VJP of the attention at (q, k, v) for the output's
+    gradient ``g``. CPU tensors: the plain VJP, uncounted. CUDA tensors: the
+    route of ``_bwd_route``; ``route="plain"`` forces the plain VJP on any
+    call, so that a check or a timing can hold the two against each other
+    (the main path never passes it). No fallback: a failed build or launch
+    raises."""
+    if q.device.type == "cpu":
+        if route not in (None, "plain"):
+            raise ValueError(f"CPU tensors take the plain VJP, not the "
+                             f"{route!r} route")
+        return _plain_vjp(q, k, v, g)
+    _check(q, k, v)
+    if _forced_bwd_route(q, k, v, route) == "plain":
+        bwd_route_launches["plain"] += 1
+        return _plain_vjp(q, k, v, g)
+    return _launch_bwd(q, k, v, g)
+
+
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
@@ -189,13 +290,7 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global vjps
-        vjps += 1
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            out = attention_reference(qq, kk, vv)
-            return torch.autograd.grad(out, (qq, kk, vv), g)
+        return attention_backward(*ctx.saved_tensors, g)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor,

@@ -13,7 +13,9 @@ the sums run in another order); bottleneck fp32 1e-4 (K up to 1152 summed
 in another order), bf16 2e-2 (tests/test_fused_bottleneck.py's tolerance:
 t1 and t2 are rounded to bf16 between the products, and an ulp apart
 there moves the next product). Whole model, kernels on against off, in
-fp32: log-probs within 1e-3.
+fp32: log-probs within 1e-3. The attention backward kernel against the
+plain VJP: bf16 1e-2 for each of dq, dk and dv (the kernel rounds dS to a
+hi and a lo bf16 part where the plain VJP keeps it fp32).
 """
 
 import pytest
@@ -194,6 +196,160 @@ def test_attention_forced_route_refuses_what_it_does_not_take(cuda):
     q, k, v = _bf16_inputs(cuda, 2, 4, 197, 197, 64, True, seed=13)
     with pytest.raises(ValueError):
         A._launch(q, k, v, route="fp32")
+
+
+# kernel 1's backward (csrc/attention_bwd.cu) where the forward takes the
+# wgmma route: the ViT and RoBERTa shapes at H=12 and a tp=2 rank's H=6,
+# and the edges of the route's range. It is held against the plain VJP (the
+# forced "plain" route) on the same inputs, ATT_TOL["bf16"] of max|ref| for
+# each of dq, dk and dv: the kernel rounds dS to a hi and a lo bf16 part
+# where the plain VJP keeps it fp32, and sums in another order.
+BWD_SHAPES = [(2, 12, 197, 197), (2, 12, 213, 213), (2, 6, 197, 197),
+              (2, 6, 213, 213)]
+BWD_EDGES = [(1, 2, sq, sk) for sq in (64, 65, 128, 256)
+             for sk in (64, 65, 128, 256)] + [(2, 3, 197, 64)]
+
+
+def _grad_out(cuda, B, H, Sq, main_path, seed):
+    """The output's gradient: as the main path hands it back (the
+    [B, H, Sq, D] view of a contiguous [B, Sq, H, D]), or contiguous."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if main_path:
+        return torch.randn(B, Sq, H, 64, device=cuda, generator=g) \
+            .to(torch.bfloat16).transpose(1, 2)
+    return torch.randn(B, H, Sq, 64, device=cuda, generator=g) \
+        .to(torch.bfloat16)
+
+
+def _bwd_counts():
+    return dict(A.bwd_route_launches), A.bwd_grad_copies
+
+
+def _check_backward(q, k, v, go, copies=0):
+    """The kernel against the plain VJP; exact route counters."""
+    (routes, copied) = _bwd_counts()
+    got = A.attention_backward(q, k, v, go)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == ({"wgmma": routes["wgmma"] + 1,
+                              "plain": routes["plain"]}, copied + copies)
+    want = A.attention_backward(q, k, v, go, route="plain")
+    torch.cuda.synchronize()
+    assert A.bwd_route_launches["plain"] == routes["plain"] + 1
+    for name, a, b, x in zip("qkv", got, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == torch.bfloat16, name
+        assert a.transpose(1, 2).is_contiguous(), name
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= ATT_TOL["bf16"], name
+    return got, want
+
+
+@pytest.mark.parametrize("main_path", [True, False],
+                         ids=["grad_main_path", "grad_contiguous"])
+@pytest.mark.parametrize("views", [False, True],
+                         ids=["contiguous", "head_views"])
+@pytest.mark.parametrize("B,H,Sq,Sk", BWD_SHAPES)
+def test_attention_backward_kernel_matches_plain_vjp(cuda, views, main_path,
+                                                     B, H, Sq, Sk):
+    q, k, v = _bf16_inputs(cuda, B, H, Sq, Sk, 64, views, seed=20)
+    assert A._bwd_route(q, k, v) == "wgmma"
+    _check_backward(q, k, v, _grad_out(cuda, B, H, Sq, main_path, seed=21))
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk", BWD_EDGES)
+def test_attention_backward_kernel_edges(cuda, B, H, Sq, Sk):
+    q, k, v = _bf16_inputs(cuda, B, H, Sq, Sk, 64, True, seed=Sq + Sk)
+    _check_backward(q, k, v, _grad_out(cuda, B, H, Sq, True, seed=Sq * Sk))
+
+
+def test_attention_backward_through_autograd(cuda):
+    """The main path: the head views of [B, S, H*D] projections through
+    ``fused_attention`` and its heads merged back, then ``backward()``: one
+    kernel backward, no plain VJP, no copy of the gradient; the
+    projections' gradients against autograd of the plain version."""
+    B, H, S = 2, 12, 213
+    g = torch.Generator(device=cuda).manual_seed(22)
+    proj = [torch.randn(B, S, H * 64, device=cuda, generator=g)
+            .to(torch.bfloat16) for _ in range(3)]
+    w = torch.randn(B, S, H * 64, device=cuda, generator=g).to(torch.bfloat16)
+
+    def grads(fn):
+        leaves = [p.clone().requires_grad_() for p in proj]
+        heads = [x.reshape(B, S, H, 64).transpose(1, 2) for x in leaves]
+        out = fn(*heads).transpose(1, 2).reshape(B, S, H * 64)
+        (out.float() * w.float()).sum().backward()
+        return [x.grad for x in leaves]
+
+    before = _bwd_counts()
+    got = grads(A.fused_attention)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == ({"wgmma": before[0]["wgmma"] + 1,
+                              "plain": before[0]["plain"]}, before[1])
+    want = grads(A.attention_reference)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= ATT_TOL["bf16"]
+
+
+def test_attention_backward_zero_grad_and_saturated_rows(cuda):
+    """A zero gradient gives zeros; rows whose softmax saturates (one key
+    takes all the weight) match the plain VJP and stay finite."""
+    q, k, v = _bf16_inputs(cuda, 2, 12, 197, 197, 64, True, seed=23)
+    zero = torch.zeros(2, 197, 12, 64, device=cuda,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    for t in A.attention_backward(q, k, v, zero):
+        assert not t.any()
+    # each query row a multiple of one key: that key takes all the weight
+    hot = (k.float() * 16).to(torch.bfloat16)
+    p = torch.softmax(hot.float() @ k.float().transpose(-1, -2) / 8, -1)
+    assert float(p.max(-1).values.min()) > 0.999
+    _check_backward(hot, k, v, _grad_out(cuda, 2, 12, 197, True, seed=24))
+
+
+def test_attention_backward_copies_an_unreadable_grad(cuda):
+    """A gradient a tensor map cannot read (a broadcast one) is copied once,
+    and the copy counted."""
+    q, k, v = _bf16_inputs(cuda, 2, 6, 197, 197, 64, True, seed=25)
+    ones = torch.ones((), device=cuda, dtype=torch.bfloat16) \
+        .expand(2, 6, 197, 64)
+    _check_backward(q, k, v, ones, copies=1)
+
+
+def test_attention_backward_other_geometries_take_the_plain_vjp(cuda):
+    """The SGA (D=96) and fp32 take the plain VJP, through autograd too,
+    and it is the plain version's own backward."""
+    sga = _bf16_inputs(cuda, 2, 8, 16, 64, 96, True, seed=26)
+    fp32 = [t.float() for t in
+            _bf16_inputs(cuda, 2, 4, 197, 197, 64, False, seed=27)]
+    for q, k, v in (sga, fp32):
+        assert A._bwd_route(q, k, v) == "plain"
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = _bwd_counts()
+        out = A.fused_attention(*leaves)
+        go = torch.randn_like(out)
+        got = torch.autograd.grad(out, leaves, go)
+        torch.cuda.synchronize()
+        assert _bwd_counts() == ({"wgmma": before[0]["wgmma"],
+                                  "plain": before[0]["plain"] + 1},
+                                 before[1])
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(A.attention_reference(*ref), ref, go)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_attention_backward_refuses_what_it_does_not_take(cuda):
+    """A forced kernel route on the SGA's geometry, a gradient of another
+    shape, and a call the kernel's C entry refuses (D=96, past the
+    wrapper's routing) all raise: there is no fallback."""
+    q, k, v = _bf16_inputs(cuda, 2, 8, 16, 64, 96, True, seed=28)
+    go = torch.zeros_like(q)
+    with pytest.raises(ValueError):
+        A.attention_backward(q, k, v, go, route="wgmma")
+    with pytest.raises(RuntimeError, match="attention_backward_tma"):
+        A._launch_bwd(q, k, v, go)
+    q, k, v = _bf16_inputs(cuda, 2, 6, 197, 197, 64, True, seed=29)
+    with pytest.raises(ValueError):
+        A._launch_bwd(q, k, v, torch.zeros(2, 6, 196, 64, device=cuda,
+                                           dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype,name", DTYPES)
