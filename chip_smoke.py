@@ -12,12 +12,16 @@ Phases (each raises on failure; nothing is caught):
               version on the card, at the shapes the main path gives it
               (and attention at the ViT geometry, S=197, and the RoBERTa
               geometry of the cross-attention family, S=213), in fp32 and
-              bf16, and
-              time kernel, plain version and (for attention) PyTorch's
-              ``scaled_dot_product_attention`` (for the bottleneck, the
-              unfused modules) as device time from the profiler. Attention
-              is also checked and timed on the head views of [B, S, H*D]
-              projections, as the main path hands them over
+              bf16, and time kernel, plain version and (for attention)
+              PyTorch's ``scaled_dot_product_attention`` (for the
+              bottleneck, the unfused modules, and the block as a chain of
+              cuDNN calls on the folded weights, ``library_chain_ms``,
+              timed in bf16 in turns with the kernel: kernel, chain, chain,
+              kernel) as device time from the profiler. The build line
+              gives ptxas's registers, spills and serialization warnings of
+              every bf16 bottleneck instantiation (``bottleneck_ptxas``).
+              Attention is also checked and timed on the head views of
+              [B, S, H*D] projections, as the main path hands them over
               (``ms_head_views``); the bottleneck takes the operands its
               module packed once (``Bottleneck.fused``), as on the main
               path, and its line gives the weight bytes the design streams
@@ -487,10 +491,44 @@ def phase_build(torch, card):
         raise RuntimeError(f"the kernels are built for sm_90a; this card "
                            f"has compute capability {cap}")
     t0 = time.perf_counter()
-    kernel_build.build(["attention", "attention_bwd", "bottleneck"])
+    logs = kernel_build.build(["attention", "attention_bwd", "bottleneck"],
+                              ptxas_info=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "device": torch.cuda.get_device_name(0), "card": card,
-          "capability": list(cap), "build_dir": kernel_build.BUILD_DIR})
+          "capability": list(cap), "build_dir": kernel_build.BUILD_DIR,
+          "bottleneck_ptxas": ptxas_report(logs.get("bottleneck", ""),
+                                           "bottleneck_bf16")})
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """Registers, spill bytes and serialization warnings (C7510-C7519) of
+    each instantiation of ``kernel`` in a ``ptxas -v`` report, by its
+    template arguments (``<1,64>`` for ``kernel<1, 64>``)."""
+    import re
+
+    def args(mangled):
+        return "<" + ",".join(re.findall(r"Li(\d+)E", mangled.split(
+            kernel, 1)[1].split("EEEv", 1)[0] + "E")) + ">"
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = args(m.group(1)) if kernel in m.group(1) else None
+            if fn:        # warnings come before this line: keep them
+                out.setdefault(fn, {"warnings": []})
+        elif fn and "spill stores" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            out[fn].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                           spill_load_bytes=nums[2])
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+        m = re.search(r"\((C751\d)\).*'([^']+)'", line)
+        if m and kernel in m.group(2):
+            out.setdefault(args(m.group(2)), {"warnings": []})[
+                "warnings"].append(m.group(1))
+    return out
 
 
 ATTENTION_CASES = [       # name, B, H, Sq, Sk, D, launches per forward
@@ -774,7 +812,8 @@ def phase_bottleneck(torch):
 
     per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "bytes_ms": 0.0, "ops_ms": 0.0,
-                   "library_ms": None, "max_abs_err": 0.0}
+                   "library_ms": None, "library_chain_ms": 0.0,
+                   "max_abs_err": 0.0}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, H, cin, width, stride, ds, n_fwd in BLOCK_CASES:
@@ -794,13 +833,26 @@ def phase_bottleneck(torch):
                 raise AssertionError(
                     f"bottleneck {name} {dtype_name}: max-abs error "
                     f"{abs_err} ({rel} of max|ref|) > {BLOCK_TOL[dtype_name]}")
-            ms = device_ms(torch, lambda: K.fused_bottleneck_packed(
-                x, packed, stride=stride))
             plain_ms = device_ms(torch, lambda: K.bottleneck_reference(
                 x, *ops, stride=stride), iters=5)
             x_nchw = x.permute(0, 3, 1, 2)
+            kernel = (lambda: K.fused_bottleneck_packed(x, packed,
+                                                        stride=stride))
+            chain_ms = chain_err = turns = None
             with torch.inference_mode():
                 module_ms = device_ms(torch, lambda: block(x_nchw))
+                if dtype_name == "bfloat16":
+                    # the main path's dtype: kernel and cuDNN chain in
+                    # turns (kernel, chain, chain, kernel)
+                    chain = library_chain(torch, ops, stride)
+                    chain_err = rel_err(chain(x_nchw).permute(0, 2, 3, 1),
+                                        want)[1]
+                    fns = (kernel, lambda: chain(x_nchw))
+                    turns = [device_ms(torch, fns[i]) for i in (0, 1, 1, 0)]
+                    ms = (turns[0] + turns[3]) / 2
+                    chain_ms = (turns[1] + turns[2]) / 2
+                else:
+                    ms = device_ms(torch, kernel)
             Ho = H // stride
             cw, cout = width, 4 * width
             flops = 2.0 * BATCH * (H * H * cin * cw + Ho * Ho * 9 * cw * cw
@@ -816,37 +868,74 @@ def phase_bottleneck(torch):
                   "max_abs_err": abs_err, "rel_err": rel,
                   "tol": BLOCK_TOL[dtype_name], "ms": ms,
                   "plain_ms": plain_ms, "unfused_module_ms": module_ms,
+                  "library_chain_ms": chain_ms,
+                  "library_chain_rel_err": chain_err, "turns_ms": turns,
                   "bound_ms": max(t_bytes, t_ops),
                   "bound_share": max(t_bytes, t_ops) / ms,
                   "bound_by": bound_by(t_bytes, t_ops),
                   "weight_stream_mb": streamed_weight_bytes(
-                      H, cin, width, stride, ds, x.element_size()) / 1e6})
+                      H, cin, width, stride, ds, x.element_size(),
+                      torch.cuda.get_device_properties(0)
+                      .multi_processor_count) / 1e6})
             if dtype_name == "bfloat16":
                 per_forward["ms"] += n_fwd * ms
                 per_forward["plain_ms"] += n_fwd * plain_ms
+                per_forward["library_chain_ms"] += n_fwd * chain_ms
                 add_bound(per_forward, n_fwd, t_bytes, t_ops)
                 per_forward["max_abs_err"] = max(per_forward["max_abs_err"],
                                                  abs_err)
     return per_forward
 
 
-def streamed_weight_bytes(H, cin, cw, stride, ds, itemsize) -> float:
+def library_chain(torch, ops, stride):
+    """The block as a chain of cuDNN calls on channels-last NCHW views: the
+    folded weights and biases (in the activation dtype) through
+    ``F.conv2d``, ReLU, the add and ReLU. A yardstick for the fused kernel's
+    time, not a reference: its t1 and t2 go through device memory and its
+    biases are rounded to the activation dtype."""
+    import torch.nn.functional as F
+
+    w1, b1, w2, b2, w3, b3, wd, bd = ops
+    dt = w1.dtype
+    cl = torch.channels_last
+
+    def conv(w, kh):      # [kh*kh*I, O] tap-major -> OIHW, channels-last
+        k = w.reshape(kh, kh, -1, w.shape[-1]).permute(3, 2, 0, 1)
+        return k.contiguous(memory_format=cl)
+
+    k1, k2, k3 = conv(w1, 1), conv(w2, 3), conv(w3, 1)
+    kd = None if wd is None else conv(wd, 1)
+    b1, b2, b3 = (b.to(dt) for b in (b1, b2, b3))
+    bd = None if bd is None else bd.to(dt)
+
+    def run(x):
+        t = torch.relu(F.conv2d(x, k1, b1))
+        t = torch.relu(F.conv2d(t, k2, b2, stride=stride, padding=1))
+        idn = x if kd is None else F.conv2d(x, kd, bd, stride=stride)
+        return torch.relu(F.conv2d(t, k3, b3) + idn)
+
+    return run
+
+
+def streamed_weight_bytes(H, cin, cw, stride, ds, itemsize, sms) -> float:
     """Weight bytes one launch streams from L2, by the shapes: every
-    output tile (8x16 pixels at stride 1, 4x16 at stride 2 in bf16; 4x16 in
-    fp32) reads its 64-row chunks once (w1 once per 192-row conv1 pass in
-    bf16, per 64-row pass in fp32); bf16 rows carry their 8 padding zeros."""
+    output tile (8x16 pixels at stride 1, 4x16 at stride 2) reads each
+    weight once (w1 once per conv1 pass: one at stride 1, two at stride 2
+    in bf16; per 64-row pass in fp32), bf16 and fp32 weights unpadded.
+    In bf16 at stride 1 with width 64 each of the ``sms`` persistent blocks
+    reads w2 once and keeps it."""
     th, tw = (8 if stride == 1 and itemsize == 2 else 4), 16
     ho = H // stride
     tiles = BATCH * -(-ho // th) * -(-ho // tw)
     halo = ((th - 1) * stride + 3) * ((tw - 1) * stride + 3)
-    passes = -(-halo // (192 if itemsize == 2 else 64))
+    passes = stride if itemsize == 2 else -(-halo // 64)
     cout = 4 * cw
-    pad = 8 if itemsize == 2 else 0
-    small = 64 * (cw + pad) * itemsize          # a w1 / w2 chunk
-    big = 64 * (128 + pad) * itemsize           # a w3 / wd chunk
-    per_tile = (passes * (cin // 64) * small + 9 * (cw // 64) * small
-                + (cout // 128) * ((cw // 64) + (cin // 64 if ds else 0)) * big)
-    return float(tiles * per_tile)
+    w2 = itemsize * 9 * cw * cw
+    resident = itemsize == 2 and stride == 1 and cw == 64
+    per_tile = itemsize * (passes * cin * cw
+                           + cout * (cw + (cin if ds else 0)))
+    return float(tiles * (per_tile + (0 if resident else w2))
+                 + (min(tiles, sms) * w2 if resident else 0))
 
 
 def _build_model(torch, dtype, use_kernels, dropout=True):
@@ -4081,6 +4170,9 @@ def main() -> int:
                 f"{f}_train_epoch_launches": family_train[f]["epoch"][name],
                 f"{f}_train_launches_per_step":
                     family_train[f]["per_step"][name]})
+    # no one PyTorch call computes the fused block; its cuDNN chain, per
+    # forward, stands beside it
+    kernels[1]["library_chain_ms"] = blk["library_chain_ms"]
     vit, cross = att["vit"], att["cross"]
     kernels[0].update({
         "route_launches": launches["attention_routes"],

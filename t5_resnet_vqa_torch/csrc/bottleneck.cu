@@ -11,54 +11,75 @@
 //   out = relu(y + idn)
 // Products take the activation dtype and accumulate in fp32; bias, ReLU and
 // the residual add are fp32 in the epilogues, then cast to the activation
-// dtype.
+// dtype (t1 and t2 are rounded to it before the next product).
 //
-// What bounds it on an H100: bytes. A stride-1 block of stage 0 does about
-// 140 FLOPs per byte of its input and output, below the ~295 FLOPs/byte at
-// which the bf16 tensor cores become the limit, so the unfused chain (each
-// conv reads its input from and writes its output to device memory) is
-// limited by memory traffic. Both paths below keep t1 and t2 out of device
-// memory: a thread block owns a tile of output pixels of one image with all
-// output channels, recomputes t1 on the tile's halo ((TH-1)*s+3 x
-// (TW-1)*s+3 pixels) into shared memory, and keeps t2 there.
+// What bounds it on an H100: bytes, except the stride-2 block. A stride-1
+// block of stage 0 does about 140 FLOPs per byte of its input and output,
+// below the ~295 FLOPs/byte at which the bf16 tensor cores become the
+// limit; the stride-2 block with its downsample does ~310. Both paths keep
+// t1 and t2 out of device memory: a thread block owns a tile of output
+// pixels of one image with all output channels and recomputes t1 on the
+// tile's halo ((TH-1)*s+3 x (TW-1)*s+3 pixels) into shared memory. What
+// it cannot keep out is the weights: they are read again from L2 for every
+// tile, 0.5-4.2x the block's activation bytes.
 //
-// bf16 (the main path): tensor cores through mma.sync m16n8k16.
-//  * Tiles of 8x16 = 128 output pixels at stride 1 (4x16 at stride 2, whose
-//    17x33 halo of a 128-pixel tile would not fit beside the ring). Each
-//    streamed weight chunk then serves twice the pixels of a 64-pixel tile,
-//    and the halo costs 180 rows for 128 outputs instead of 108 (padded to
-//    128) for 64.
-//  * Weights are packed on the host (ops/bottleneck.py, pack_operands) into
-//    64-row chunks in the exact shared-memory order the warps read: rows of
-//    N + 8 elements, the 8 zeros keeping ldmatrix free of bank conflicts.
-//    So each chunk is one contiguous cp.async.bulk.
-//  * Input pixels arrive by tensor-map (TMA) loads, one per chunk: the halo
-//    as a box of 64 channels x halo width x halo rows, image borders filled
-//    with zeros by the map; the downsample's x[::s, ::s] through a second
-//    map whose strides skip pixels. Both use the 128-byte swizzle, which
-//    the ldmatrix addresses undo. (One 128-byte copy per pixel row, the
-//    first form of this design, left the stride-2 block waiting on copies.)
-//  * One producer thread keeps a ring of 3-4 stages in flight through
-//    full/empty mbarriers; eight consumer warps run the products and never
-//    wait on a whole-block barrier for a chunk. A named barrier over the
-//    consumers orders t1 and t2 between the three convolutions.
-//  * conv3 leaves through shared memory: each 128-channel slice of the
-//    tile is summed into a swizzled staging tile and written by tensor-map
-//    stores, which clip partial tiles; an identity block's x arrives in the
-//    same staging tile by tensor-map loads issued before the products.
-//    (Per-thread 4-byte stores of 8 scattered rows, the first form, took a
-//    third of the kernel's time.) Epilogues load their biases before their
-//    first store, so the loads' latencies overlap.
-//  * Persistent blocks: one block per SM walks output tiles, so the
-//    producer streams the next tile's first chunks under the current
-//    tile's last products and epilogue.
-//  * Warp tiles: conv1 runs up to 192 halo rows per pass (48 rows x N/2
-//    columns a warp), conv2 and conv3 32 rows x N/2 (N/4 at stride 2).
-//  Whole-block weight residency (no re-streaming at all) was not chosen:
-//  stage 0's padded weights take 160 KB, which leaves too little beside
-//  t1, the staging tile and the input ring at 128-pixel tiles, and stage
-//  1's (557-754 KB) never fit. The ring instead reads each weight chunk
-//  from L2 once per tile.
+// bf16 (the main path): Hopper's warpgroup products (wgmma), fed by TMA,
+// in warp-specialised persistent blocks. It replaces a design of eight
+// mma.sync warps fed by ldmatrix, which reached 0.2-0.28 of the bound: every k16 step reloaded both operands through the register file,
+// weight rows were padded by 8 zeros for ldmatrix's banks, and every phase
+// ended at a barrier of all eight warps.
+//  * Roles: two consumer warpgroups (setmaxnreg 232 registers) and one
+//    producer warpgroup (40), one thread of which keeps two mbarrier rings
+//    in flight in the consumers' order: activation boxes (the halo for
+//    conv1, x[::s, ::s] for the downsample; tensor-map loads with the
+//    128-byte swizzle, image borders filled with zeros by the map) and
+//    16 KB weight entries (bulk copies). Persistent blocks walk the output
+//    tiles, so the next tile's first chunks load under this tile's conv3.
+//    Stage 0's w2 (72 KB unpadded) is loaded once per block and stays.
+//  * Tiles as before: 8x16 output pixels at stride 1 (two m64 blocks),
+//    4x16 at stride 2 (one), whose t1 (a 9x33 halo x 128 channels, 74 KB)
+//    leaves no room for a larger tile beside the rings and the staging.
+//  * conv1: both groups run the halo's three m64 blocks, each half the
+//    columns (N = Cw / 2), A (the halo box) and B from shared memory (SS).
+//  * conv2 and conv3: each group owns one m64 block of output pixels. At
+//    stride 1, its own block with all columns: t2 never leaves the group's
+//    registers, where the conv2 accumulators, with bias, ReLU and the bf16
+//    rounding, are conv3's A fragments (RS), and no barrier stands between
+//    the two products. At stride 2, the tile's one block, half the columns
+//    each; t2 goes through shared memory, where conv3 reads all of it (SS).
+//    conv3 and the downsample run in passes of 128 output channels a group.
+//  * conv2's A, the 3x3: output row m under tap (di, dj) reads halo pixel
+//    (s (m / TW) + di) HW + s (m % TW) + dj, which is neither a whole
+//    8-row swizzle atom nor, at stride 2, contiguous, so no descriptor can
+//    address it in t1. It comes from registers (RS): ldmatrix.x4 loads
+//    the fragment from t1 at those addresses (the swizzle keeps a stride-1
+//    read free of bank conflicts; stride 2 has 2-way conflicts). One method
+//    for both strides. A group waits for its previous chunk's products
+//    before loading the next fragments (the other group's products fill
+//    the gap): a product reads its A registers after issue, so loading
+//    into the same registers under it gives wrong sums, and into a second
+//    set made ptxas serialize every wgmma of the kernel (C7513).
+//  * Operand layouts: every shared-memory operand is K-major with the
+//    128-byte swizzle (rows of 64 channels, 16-byte piece p of row r at
+//    p ^ (r % 8)), which the descriptors (wgmma_desc_sw128) read: the TMA
+//    boxes as they land; the weights packed that way on the host
+//    (ops/bottleneck.py, pack_weight: no padding), so an entry is one bulk
+//    copy; t1 and t2 written that way by the epilogues.
+//  * Every chunk's products are committed as one group; a consumer waits
+//    for the group before last, then releases that chunk's ring entries,
+//    so the tensor cores always have one chunk queued.
+//  * Registers: ptxas gives separate accumulator arrays separate registers
+//    and serializes wgmmas of different N on shared ones (C7511), so the
+//    products share arrays only where their N agree (see Cfg).
+//  * conv3 leaves through each group's own swizzled staging blocks and
+//    tensor-map stores of its 4x16 pixels (partial tiles clipped by the
+//    map); an identity block's x arrives there by tensor-map loads issued
+//    before the products. Each group waits only on its own stores and
+//    loads. Named barriers over both groups order t1 (and t2 at stride 2).
+//  * Not kept: clusters of two blocks sharing each weight entry by TMA
+//    multicast, which halves the weights' L2 reads, ran 1.5-2.7x slower:
+//    every entry then waits for both blocks' releases and both halves
+//    (ablate_bottleneck.py, which times each alternative named here).
 //
 // fp32 (a check path, not the main path): CUDA-core FMAs on 4x16 tiles,
 // weights unpacked and staged with cp.async through one buffer.
@@ -68,6 +89,8 @@
 
 #include <cuda.h>
 
+#include <type_traits>
+
 #include "sm90_common.cuh"
 
 using namespace sm90;
@@ -75,244 +98,264 @@ using namespace sm90;
 namespace {
 
 constexpr int KC = 64;                  // K rows per chunk
-constexpr int NMAX = 128;               // output channels per conv3 pass
-constexpr int kPad = 8;                 // elements added to every shared row
+constexpr int NMAX = 128;               // output channels per conv3 pass (fp32)
+constexpr int kPad = 8;                 // elements added to every shared row (fp32)
 constexpr int kMaxSmem = 232448;        // H100: one block's dynamic shared memory
 
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~(size_t)127; }
+
+struct Geo {
+  int H, W, Cin, Cw, Cout, Ho, Wo, has_ds, tiles_w, tiles_img, tiles;
+};
 
 // =================================================================== bf16
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kConsumerWarps = 8;
-constexpr int kConsumers = kConsumerWarps * 32;
-constexpr int kThreadsBf16 = kConsumers + 32;     // + one producer warp
-constexpr int M1 = 192;                           // rows of a conv1 pass
-constexpr int kABytes = M1 * KC * 2;              // 24576: input rows, 128 B each
-constexpr int kWBytes = KC * (NMAX + kPad) * 2;   // 17408
-constexpr int kStageBytes = kABytes + kWBytes;    // a multiple of 1024
-constexpr int kBarBytes = 128;
+constexpr int kGroups = 2;                         // consumer warpgroups
+constexpr int kThreadsBf16 = (kGroups + 1) * 128;  // + the producer warpgroup
+// registers per thread after setmaxnreg: 40 + 2 * 232 = 504 of the 512 a
+// sub-partition holds for its three warps (one of each group)
+constexpr unsigned kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kBlockBytes = 64 * KC * 2;     // an m64 block of 64-channel rows
+constexpr int kWBytes = 128 * KC * 2;        // a weight entry: 128 rows
+constexpr int kAStages = 2;
 
-__host__ __device__ inline size_t align1024(size_t n) { return (n + 1023) & ~(size_t)1023; }
+constexpr int align1024(int n) { return (n + 1023) & ~1023; }
 
-template <int S> struct Cfg {
-  static constexpr int TH = S == 1 ? 8 : 4, TW = 16, TM = TH * TW;
+template <int S, int CW> struct Cfg {
+  static constexpr int TH = S == 1 ? 8 : 4, TW = 16, TM = TH * TW, MB = TM / 64;
   static constexpr int HH = (TH - 1) * S + 3, HW = (TW - 1) * S + 3;
   static constexpr int HALO = HH * HW;
-  // conv1 passes: boxes of BOXH whole halo rows, at most M1 pixels each
+  // conv1 passes: boxes of BOXH whole halo rows, MB1 m64 blocks each
   static constexpr int BOXH = S == 1 ? HH : 5;
   static constexpr int PASS_ROWS = BOXH * HW;      // 180 or 165
   static constexpr int PASSES = (HH + BOXH - 1) / BOXH;
-  static constexpr int WC = S == 1 ? 2 : 4;     // column groups, conv2/conv3
-  static constexpr int OUT_BYTES = TM * NMAX * 2;  // output staging
-  // shared memory: barriers and t1, the output staging, then the ring
-  __host__ __device__ static size_t t1_end(int Cw) {
-    return align1024(kBarBytes + (size_t)HALO * (Cw + kPad) * 2);
-  }
-  __host__ __device__ static size_t ring_start(int Cw) {
-    return t1_end(Cw) + OUT_BYTES;
-  }
-  static int stages(int Cw) {    // as deep as fits, at most 4
-    const size_t room = kMaxSmem - 1024 - ring_start(Cw);
-    const size_t n = room / kStageBytes;
-    return n < 4 ? (int)n : 4;
-  }
-  static size_t smem(int Cw) {   // + 1024: the base is aligned at run time
-    return 1024 + ring_start(Cw) + (size_t)stages(Cw) * kStageBytes;
-  }
-};
-static_assert(Cfg<1>::PASS_ROWS <= M1 && Cfg<2>::PASS_ROWS <= M1, "conv1 pass");
-
-struct Geo {
-  int H, W, Cin, Cw, Cout, Ho, Wo, has_ds, tiles_w, tiles_img, tiles, stages;
-};
-
-// The [rows, N] product of one warp group layout, summed over K-chunks.
-// 8 warps as WR = 8 / WC row groups of MT m16 tiles and WC column groups of
-// N / WC columns (nt = N / (8 WC) n8 tiles, at most NTMAX).
-template <int MT, int WC> struct MmaTile {
-  static constexpr int WR = kConsumerWarps / WC, NTMAX = NMAX / (8 * WC);
-  float c[MT][NTMAX][4];
-  int row0, col0, nt;
-
-  __device__ void zero(int N) {
-    const int w = threadIdx.x >> 5;
-    row0 = (w % WR) * MT * 16;
-    col0 = (w / WR) * (N / WC);
-    nt = N / (8 * WC);
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NTMAX; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
-  }
-  // Add one K-chunk: a_row(m) points at row m (k = 0) of A in shared memory;
-  // b is a [KC][ldb] weight chunk. SWZ: A rows are 128 bytes whose 16-byte
-  // pieces the tensor map's 128-byte swizzle permuted (piece j of row m at
-  // j ^ (m % 8)); otherwise rows are padded and unpermuted. Rows at or past
-  // rows_valid are not needed by the caller, so a warp whose rows all lie
-  // there skips the chunk.
-  template <bool SWZ, typename RowPtr>
-  __device__ void mma(RowPtr a_row, const bf16* b, int ldb, int rows_valid) {
-    if (row0 >= rows_valid) return;
-    const int lane = threadIdx.x & 31, hi = lane >> 4;
-    // ldmatrix x4: lane l addresses row (l & 15) at k offset 8 * (l >> 4);
-    // row0 is a multiple of 16, so the row's m % 8 is l % 8
-    const bf16* ap[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) ap[i] = a_row(row0 + i * 16 + (lane & 15));
-    // x4.trans of a [16 k][16 n] block: lane l addresses k row (l & 15) at
-    // column 8 * (l >> 4); registers 0,1 feed n-tile 2j, 2,3 n-tile 2j+1
-    const bf16* bp = b + (lane & 15) * ldb + col0 + hi * 8;
-#pragma unroll
-    for (int k = 0; k < KC; k += 16) {
-      const int piece = SWZ ? (((k >> 3) + hi) ^ (lane & 7)) : (k >> 3) + hi;
-      unsigned a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) ldmatrix_x4(a[i], ap[i] + piece * 8);
-#pragma unroll
-      for (int j = 0; j < NTMAX / 2; ++j) {
-        if (2 * j < nt) {
-          unsigned bb[4];
-          ldmatrix_x4_trans(bb, bp + k * ldb + j * 16);
-#pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            mma_bf16(c[i][2 * j], a[i], bb[0], bb[1]);
-            mma_bf16(c[i][2 * j + 1], a[i], bb[2], bb[3]);
-          }
-        }
-      }
-    }
-  }
-  // f(row, col, a, b) for every pair of adjacent columns the thread owns,
-  // with a, b = the products + bias[col], bias[col + 1] (+ bias2 where
-  // given). The biases are all loaded before the first f, so their
-  // latencies overlap instead of queueing behind f's stores.
-  template <typename F>
-  __device__ void epilogue(const float* bias, const float* bias2, F f) {
-    const int lane = threadIdx.x & 31;
-    float2 bv[NTMAX];
-#pragma unroll
-    for (int j = 0; j < NTMAX; ++j) {
-      if (j < nt) {
-        const int col = col0 + j * 8 + (lane & 3) * 2;
-        bv[j] = load2(bias + col);
-        if (bias2 != nullptr) {
-          const float2 b2 = load2(bias2 + col);
-          bv[j].x += b2.x;
-          bv[j].y += b2.y;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int row = row0 + i * 16 + (lane >> 2);
-#pragma unroll
-      for (int j = 0; j < NTMAX; ++j) {
-        if (j < nt) {
-          const int col = col0 + j * 8 + (lane & 3) * 2;
-          f(row, col, c[i][j][0] + bv[j].x, c[i][j][1] + bv[j].y);
-          f(row + 8, col, c[i][j][2] + bv[j].x, c[i][j][3] + bv[j].y);
-        }
-      }
-    }
-  }
+  static constexpr int MB1 = (PASS_ROWS + 63) / 64;
+  static constexpr int NW1 = CW / 2;               // a group's conv1 columns
+  // conv2 and conv3: each group owns one m64 block of output pixels. ROWS
+  // (stride 1, two blocks): its own block with all columns, t2 kept in its
+  // registers; otherwise (stride 2, one block) half the columns of the
+  // tile's block, t2 through shared memory. conv3 passes of NP columns
+  // leave a group 128 of them.
+  static constexpr bool ROWS = MB == kGroups;
+  static constexpr int N2 = ROWS ? CW : CW / 2;
+  static constexpr int NP = ROWS ? 128 : 256;
+  // ptxas gives separate accumulator arrays separate registers, and
+  // serializes wgmmas of different N on shared ones (C7511). So conv1 and
+  // conv2 share one array (MB1 x NW1 / 2 fp32 a thread, at least N2 / 2)
+  // in products of N = NW1; conv3's 64 join it, as products of N = NW1,
+  // only at stride 1 with Cw 128, where an array of its own would not fit
+  // (C7512), and stay apart elsewhere, in products of N = 128 (64), where
+  // sharing was slower (ablate_bottleneck.py).
+  static constexpr bool SHARE3 = ROWS && CW == 128;
+  static constexpr int ACC1 = MB1 * NW1 / 2 > N2 / 2 ? MB1 * NW1 / 2 : N2 / 2;
+  static constexpr int ACC = SHARE3 && 64 > ACC1 ? 64 : ACC1;
+  // shared memory: barriers, t1 (t2 once conv2 is done), the output
+  // staging (two 64-channel blocks of 64 rows per group), the activation
+  // ring, a resident w2 (RES2), the weight ring as deep as fits (at most 8
+  // entries)
+  static constexpr int T1_BYTES = align1024(HALO * CW * 2);
+  static constexpr int OUT_BYTES = kGroups * 2 * 64 * 128;
+  static constexpr int A_BYTES = MB1 * kBlockBytes;
+  static constexpr int T1_OFF = 1024;
+  static constexpr int OUT_OFF = T1_OFF + T1_BYTES;
+  static constexpr int A_OFF = OUT_OFF + OUT_BYTES;
+  // stage 0's w2 (Cw 64, 72 KB unpadded) stays in shared memory for the
+  // block's whole walk, loaded once; elsewhere it streams with the rest
+  static constexpr bool RES2 = S == 1 && CW == 64;
+  static constexpr int W2_OFF = A_OFF + kAStages * A_BYTES;
+  static constexpr int W2_BYTES = RES2 ? 9 * CW * KC * 2 : 0;
+  static constexpr int W_OFF = W2_OFF + W2_BYTES;
+  static constexpr int WS_FIT = (kMaxSmem - 1024 - W_OFF) / kWBytes;
+  static constexpr int WS = WS_FIT < 8 ? WS_FIT : 8;
+  static constexpr int SMEM = 1024 + W_OFF + WS * kWBytes;  // + 1024: aligned at run time
 };
 
-template <int S>
-__global__ void __launch_bounds__(kThreadsBf16, 1)
-bottleneck_bf16(const __grid_constant__ CUtensorMap xmap,
-                const __grid_constant__ CUtensorMap dsmap,
-                const __grid_constant__ CUtensorMap omap,
-                const bf16* __restrict__ w1,
-                const float* __restrict__ b1, const bf16* __restrict__ w2,
-                const float* __restrict__ b2, const bf16* __restrict__ w3,
-                const float* __restrict__ b3, const bf16* __restrict__ wd,
-                const float* __restrict__ bd, Geo g) {
-  using C = Cfg<S>;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  // the 128-byte swizzle of the input rows needs 1024-byte aligned buffers
-  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + g.stages;
-  uint64_t* idn_bar = empty + g.stages;     // the identity's arrival
-  const int Cw = g.Cw, LT = Cw + kPad;
-  bf16* t1 = reinterpret_cast<bf16*>(smem + kBarBytes);     // [HALO][LT]
-  bf16* t2 = t1;                            // [TM][LT], once conv2 is done
-  // [2][TM][64]: an output tile of 128 channels, two swizzled halves
-  bf16* ostage = reinterpret_cast<bf16*>(smem + C::t1_end(Cw));
-  unsigned char* ring = smem + C::ring_start(Cw);
-  auto abuf = [&](int st) { return reinterpret_cast<bf16*>(ring + st * kStageBytes); };
-  auto wbuf = [&](int st) {
-    return reinterpret_cast<bf16*>(ring + st * kStageBytes + kABytes);
-  };
+// A consumer warp's view of a ring: entries are acquired in the producer's
+// order and released in the same order. Every consumer warp acquires (waits
+// for) every entry, used or not, so that no warp arrives on an entry's
+// empty barrier before the entry it is releasing has landed.
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int n;
+  int acq, rel;
+  unsigned ph;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < g.stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    mbar_init(idn_bar, 1);
-    mbar_fence_init();
+  __device__ int acquire() {
+    const int s = acq;
+    mbar_wait(&full[s], ph);
+    if (++acq == n) { acq = 0; ph ^= 1; }
+    return s;
   }
-  __syncthreads();
-
-  const int kci = g.Cin / KC, kcw = Cw / KC, ncs = g.Cout / NMAX;
-  int st = 0;
-  unsigned ph = 0;
-
-  if (warp == kConsumerWarps) {
-    // ---------------- producer (one thread): the consumers' chunk order ----
-    if (lane != 0) return;
-    const unsigned w_small = KC * LT * 2;              // a w1 / w2 chunk
-    const unsigned w_big = KC * (NMAX + kPad) * 2;     // a w3 / wd chunk
-    const unsigned halo_box = KC * C::PASS_ROWS * 2;   // 64 channels
-    const unsigned ds_box = KC * C::TM * 2;
-    // one chunk: a weight chunk and, with a map, an input box at (c, w, h, b)
-    auto produce = [&](const bf16* wsrc, unsigned wbytes, const CUtensorMap* map,
-                       int c, int w, int h, int b, unsigned abytes) {
-      mbar_wait(&empty[st], ph ^ 1);
-      mbar_arrive_expect_tx(&full[st], wbytes + abytes);
-      bulk_copy_g2s(wbuf(st), wsrc, wbytes, &full[st]);
-      if (map != nullptr) tma_load_4d(abuf(st), map, c, w, h, b, &full[st]);
-      if (++st == g.stages) { st = 0; ph ^= 1; }
-    };
-    for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
-      const int b = tile / g.tiles_img, t = tile - b * g.tiles_img;
-      const int oh0 = (t / g.tiles_w) * C::TH, ow0 = (t % g.tiles_w) * C::TW;
-      const int ih0 = oh0 * S - 1, iw0 = ow0 * S - 1;
-      for (int p = 0; p < C::PASSES; ++p)
-        for (int c = 0; c < kci; ++c)
-          produce(w1 + (size_t)c * KC * LT, w_small, &xmap, c * KC, iw0,
-                  ih0 + p * C::BOXH, b, halo_box);
-      for (int q = 0; q < 9 * kcw; ++q)
-        produce(w2 + (size_t)q * KC * LT, w_small, nullptr, 0, 0, 0, 0, 0);
-      for (int nc = 0; nc < ncs; ++nc) {
-        for (int c = 0; c < kcw; ++c)
-          produce(w3 + (size_t)(nc * kcw + c) * KC * (NMAX + kPad), w_big,
-                  nullptr, 0, 0, 0, 0, 0);
-        if (g.has_ds)
-          for (int c = 0; c < kci; ++c)
-            produce(wd + (size_t)(nc * kci + c) * KC * (NMAX + kPad), w_big,
-                    &dsmap, c * KC, ow0, oh0, b, ds_box);
-      }
-    }
-    return;
-  }
-
-  // ---------------- consumers ----------------
-  auto acquire = [&]() { mbar_wait(&full[st], ph); return st; };
-  auto release = [&]() {
+  __device__ void release(int k) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);
-    if (++st == g.stages) { st = 0; ph ^= 1; }
+    for (; k > 0; --k) {
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[rel]);
+      if (++rel == n) rel = 0;
+    }
+  }
+};
+
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  return wgmma_desc_sw128(p, 16, 1024);
+}
+
+template <int NB, int M>
+__device__ __forceinline__ void fence_all(float (&a)[NB][M]) {
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) fence_reg(a[i][j]);
+}
+template <int K>
+__device__ __forceinline__ void fence_all(unsigned (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_reg(a[k][e]);
+}
+
+// f(row, col, a, b) for every pair of adjacent columns a consumer thread
+// holds in a group's [NB x 64 rows][N] accumulator, with a, b = the
+// products + bias[col], bias[col + 1] (+ bias2 where given). Row m of m64
+// block i is row 64 i + m; columns count from the group's first.
+template <int NB, int N, typename F>
+__device__ __forceinline__ void epilogue(float (&acc)[NB][N / 2], const float* bias,
+                                         const float* bias2, F f) {
+  const int wt = threadIdx.x & 127, lane = wt & 31;
+  const int r0 = (wt >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float2 bv = load2(bias + 8 * j + c0);
+    if (bias2 != nullptr) {
+      const float2 b2 = load2(bias2 + 8 * j + c0);
+      bv.x += b2.x;
+      bv.y += b2.y;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      f(64 * i + r0, 8 * j + c0, acc[i][4 * j] + bv.x, acc[i][4 * j + 1] + bv.y);
+      f(64 * i + r0 + 8, 8 * j + c0, acc[i][4 * j + 2] + bv.x, acc[i][4 * j + 3] + bv.y);
+    }
+  }
+}
+
+// The block's shared memory and operands, as both roles see them.
+struct Smem {
+  uint64_t *full_a, *empty_a, *full_w, *empty_w;
+  uint64_t* idn_bar;          // per group: the identity's arrival
+  bf16* t1;                   // [CW / 64][HALO][64]; at stride 2 t2 [CW / 64][TM][64]
+                              // once conv2 is done
+  bf16* ostage;               // per group [2][64][64]
+  unsigned char *ring_a, *ring_w;
+  bf16* w2;                   // RES2: [9 CW / 64][CW][64], landing on w2_bar
+  uint64_t* w2_bar;
+};
+struct Operands {
+  const bf16 *w1, *w2, *w3, *wd;
+  const float *b1, *b2, *b3, *bd;
+};
+
+// The producer: one thread loads every chunk in the consumers' order.
+template <int S, int CW>
+__device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* xmap,
+                                        const CUtensorMap* dsmap, const Operands& ops,
+                                        const Geo& g) {
+  using C = Cfg<S, CW>;
+  const int kci = g.Cin / KC, kcw = CW / KC, full_passes = g.Cout / C::NP;
+  int as = 0, ws = 0;
+  unsigned aph = 0, wph = 0;
+  // a box at (channel, column, row, image) of a map
+  auto load_a = [&](const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                    unsigned bytes) {
+    mbar_wait(&sm.empty_a[as], aph ^ 1);
+    mbar_arrive_expect_tx(&sm.full_a[as], bytes);
+    tma_load_4d(sm.ring_a + as * C::A_BYTES, map, c0, c1, c2, c3, &sm.full_a[as]);
+    if (++as == kAStages) { as = 0; aph ^= 1; }
   };
-  MmaTile<3, 2> acc1;              // conv1: 4 x 48 rows = one 192-row pass
-  MmaTile<2, C::WC> acc;           // conv2, conv3: TM rows
+  auto load_w = [&](const bf16* src, unsigned bytes) {
+    mbar_wait(&sm.empty_w[ws], wph ^ 1);
+    mbar_arrive_expect_tx(&sm.full_w[ws], bytes);
+    bulk_copy_g2s(sm.ring_w + ws * kWBytes, src, bytes, &sm.full_w[ws]);
+    if (++ws == C::WS) { ws = 0; wph ^= 1; }
+  };
+  constexpr unsigned chunk_bytes = CW * KC * 2;       // a w1 / w2 chunk
+  constexpr unsigned halo_box = C::PASS_ROWS * KC * 2;
+  constexpr unsigned ds_box = C::TM * KC * 2;
+  if constexpr (C::RES2) {
+    mbar_arrive_expect_tx(sm.w2_bar, C::W2_BYTES);
+    bulk_copy_g2s(sm.w2, ops.w2, C::W2_BYTES, sm.w2_bar);
+  }
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+    const int b = tile / g.tiles_img, t = tile - b * g.tiles_img;
+    const int oh0 = (t / g.tiles_w) * C::TH, ow0 = (t % g.tiles_w) * C::TW;
+    const int ih0 = oh0 * S - 1, iw0 = ow0 * S - 1;
+    for (int p = 0; p < C::PASSES; ++p)
+      for (int c = 0; c < kci; ++c) {
+        load_a(xmap, c * KC, iw0, ih0 + p * C::BOXH, b, halo_box);
+        load_w(ops.w1 + (size_t)c * CW * KC, chunk_bytes);
+      }
+    if constexpr (!C::RES2)
+      for (int q = 0; q < 9 * kcw; ++q) load_w(ops.w2 + (size_t)q * CW * KC, chunk_bytes);
+    // conv3 and the downsample: 128-column blocks jb of the packed
+    // weights, NP / 128 per pass (one in a 128-column last pass)
+    for (int nc = 0; nc * C::NP < g.Cout; ++nc) {
+      const int jb = nc * (C::NP / 128), nent = nc < full_passes ? C::NP / 128 : 1;
+      for (int c = 0; c < kcw; ++c)
+        for (int e = 0; e < nent; ++e)
+          load_w(ops.w3 + ((size_t)(jb + e) * kcw + c) * 128 * KC, kWBytes);
+      if (g.has_ds)
+        for (int c = 0; c < kci; ++c) {
+          load_a(dsmap, c * KC, ow0, oh0, b, ds_box);
+          for (int e = 0; e < nent; ++e)
+            load_w(ops.wd + ((size_t)(jb + e) * kci + c) * 128 * KC, kWBytes);
+        }
+    }
+  }
+}
+
+// A consumer warpgroup: group grp takes columns grp * N / 2.. of every
+// product.
+template <int S, int CW>
+__device__ __forceinline__ void consume(const Smem& sm, const CUtensorMap* dsmap,
+                                        const CUtensorMap* omap, const Operands& ops,
+                                        const Geo& g) {
+  using C = Cfg<S, CW>;
+  const int kci = g.Cin / KC, kcw = CW / KC;
+  const int full_passes = g.Cout / C::NP, last_pass = g.Cout % C::NP;   // 0 or 128
+  bf16* t1 = sm.t1;
+  bf16* t2 = sm.t1;
+  const int grp = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const int warp = wt >> 5, lane = threadIdx.x & 31;
+  const bool leader = wt == 0;
+  const int mb = C::ROWS ? grp : 0, co2 = C::ROWS ? 0 : grp * C::N2;
+  bf16* ost = sm.ostage + grp * 2 * 64 * 64;
+  Ring ra{sm.full_a, sm.empty_a, kAStages, 0, 0, 0};
+  Ring rw{sm.full_w, sm.empty_w, C::WS, 0, 0, 0};
+  auto abuf = [&](int s) { return sm.ring_a + s * C::A_BYTES; };
+  auto wbuf = [&](int s) { return sm.ring_w + s * kWBytes; };
+  // the entries of the chunk whose products are still in flight
+  int pend_a = 0, pend_w = 0;
+  // a chunk's products are issued: commit them, wait for the previous
+  // chunk's, release that chunk's entries
+  auto issued = [&](int na, int nw) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    ra.release(pend_a);
+    rw.release(pend_w);
+    pend_a = na;
+    pend_w = nw;
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    ra.release(pend_a);
+    rw.release(pend_w);
+    pend_a = pend_w = 0;
+  };
   unsigned idn_ph = 0;
+  float acc[C::ACC];
 
   for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
     const int b = tile / g.tiles_img, t = tile - b * g.tiles_img;
@@ -321,107 +364,260 @@ bottleneck_bf16(const __grid_constant__ CUtensorMap xmap,
 
     // ---- conv1 (1x1) + bias + ReLU on the halo; zero outside the image ----
     for (int p = 0; p < C::PASSES; ++p) {
-      acc1.zero(Cw);
+      auto& acc1 = *reinterpret_cast<float(*)[C::MB1][C::NW1 / 2]>(acc);
       for (int c = 0; c < kci; ++c) {
-        const int s = acquire();
-        const bf16* a = abuf(s);
-        acc1.mma<true>([&](int m) { return a + m * KC; }, wbuf(s), LT,
-                       C::HALO - p * C::PASS_ROWS);
-        release();
+        const int sa = ra.acquire(), sw = rw.acquire();
+        const uint64_t da = desc(abuf(sa));
+        const uint64_t db = desc(wbuf(sw) + grp * C::NW1 * KC * 2);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < C::MB1; ++i)
+            WgmmaSS<C::NW1>::run(acc1[i], da + i * (kBlockBytes >> 4) + 2 * kk,
+                                 db + 2 * kk, c | kk);
+        issued(1, 1);
       }
-      // the previous tile's conv3 has read t2, which t1 overwrites
-      if (p == 0) named_barrier(1, kConsumers);
-      acc1.epilogue(b1, nullptr, [&](int r, int n, float v0, float v1) {
+      drain();
+      fence_all(acc1);
+      // both groups are past the previous tile's reads of t1 (by conv2)
+      // and of t2 where it shares t1's place (by conv3)
+      if (p == 0) named_barrier(1, kGroups * 128);
+      epilogue<C::MB1, C::NW1>(acc1, ops.b1 + grp * C::NW1, nullptr,
+                               [&](int r, int n, float v0, float v1) {
         const int idx = p * C::PASS_ROWS + r;
         if (r >= C::PASS_ROWS || idx >= C::HALO) return;
         const int ih = ih0 + idx / C::HW, iw = iw0 + idx % C::HW;
         const bool inside = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
-        store2(t1 + (size_t)idx * LT + n, inside ? fmaxf(v0, 0.f) : 0.f,
-               inside ? fmaxf(v1, 0.f) : 0.f);
+        const int col = grp * C::NW1 + n;
+        store2(t1 + (col >> 6) * C::HALO * 64 + swizzled(idx, col & 63),
+               inside ? fmaxf(v0, 0.f) : 0.f, inside ? fmaxf(v1, 0.f) : 0.f);
       });
     }
-    named_barrier(1, kConsumers);
+    named_barrier(1, kGroups * 128);
 
-    // ---- conv2 (3x3, stride S) + bias + ReLU: 9 taps read t1 in place ----
-    // output pixel m = (m / TW, m % TW) of the tile reads halo pixel
-    // (S * (m / TW) + di, S * (m % TW) + dj)
-    acc.zero(Cw);
+    // ---- conv2 (3x3, stride S) + bias + ReLU: 9 taps read t1 in place.
+    // Each group owns one m64 block of output pixels, mb (ROWS: its own;
+    // otherwise the tile's one), and N2 of its columns from co2. Output
+    // pixel m = (m / TW, m % TW) of the tile reads halo pixel
+    // (S (m / TW) + di, S (m % TW) + dj); a warp's 16 rows of block mb are
+    // output row 4 mb + warp, so its lane l (ldmatrix row l % 16) reads
+    // column S (l % 16) + dj. ----
+    // as NB2 products of N = NW1 on conv1's accumulators: ptxas serializes
+    // wgmmas of different N on shared registers (C7511)
+    constexpr int NB2 = C::N2 / C::NW1;
+    auto& acc2 = *reinterpret_cast<float(*)[NB2][C::NW1 / 2]>(acc);
+    unsigned af[KC / 16][4];
+    if (C::RES2 && tile == blockIdx.x) mbar_wait(sm.w2_bar, 0);
     for (int q = 0; q < 9 * kcw; ++q) {
-      const int s = acquire();
-      const int tap = q / kcw, kc = (q - tap * kcw) * KC;
+      const int sw = C::RES2 ? 0 : rw.acquire();
+      const int tap = q / kcw, blk = q - tap * kcw;
       const int di = tap / 3, dj = tap - 3 * di;
-      const bf16* base = t1 + (size_t)(di * C::HW + dj) * LT + kc;
-      acc.mma<false>([&](int m) {
-        return base + (size_t)((m / C::TW) * S * C::HW + (m % C::TW) * S) * LT;
-      }, wbuf(s), LT, C::TM);
-      release();
+      const int hp = (S * (4 * mb + warp) + di) * C::HW + S * (lane & 15) + dj;
+      const bf16* row = t1 + blk * C::HALO * 64 + hp * 64;
+      // the previous chunk's products read af: wait for them before
+      // loading the next fragments (the other group's products run
+      // meanwhile)
+      wgmma_wait<0>();
+      fence_all(af);
+      rw.release(pend_w);
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        ldmatrix_x4(af[kk], row + ((((2 * kk + (lane >> 4)) ^ hp) & 7) << 3));
+      const uint64_t db = desc((C::RES2 ? reinterpret_cast<unsigned char*>(sm.w2) +
+                                              q * CW * KC * 2
+                                        : wbuf(sw)) + co2 * KC * 2);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < NB2; ++h)
+          WgmmaRS<C::NW1>::run(acc2[h], af[kk], db + h * (C::NW1 * KC * 2 >> 4) + 2 * kk,
+                               q | kk);
+      wgmma_commit();
+      pend_w = C::RES2 ? 0 : 1;
     }
-    named_barrier(1, kConsumers);      // every warp is past its reads of t1
-    acc.epilogue(b2, nullptr, [&](int r, int n, float v0, float v1) {
-      store2(t2 + (size_t)r * LT + n, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-    });
-    named_barrier(1, kConsumers);
-
-    // ---- conv3 (1x1) [+ strided 1x1 downsample] + residual + ReLU ----
-    // Per 128 output channels: the sum goes to the staging tile, which two
-    // tensor-map stores write out (partial tiles clipped by the map). For
-    // an identity block the staging first receives x at the output pixels
-    // by tensor-map loads, issued before the products so they arrive under
-    // them. One thread (consumer 0) drives the bulk copies.
-    const bool leader = threadIdx.x == 0;
-    for (int nc = 0; nc < ncs; ++nc) {
-      const int c0 = nc * NMAX;
-      if (leader) {
-        bulk_wait_read();                  // the last tile's stores are out
-        if (!g.has_ds) {
-          mbar_arrive_expect_tx(idn_bar, C::OUT_BYTES);
-          for (int h = 0; h < 2; ++h)
-            tma_load_4d(ostage + h * C::TM * 64, &dsmap, c0 + h * 64, ow0, oh0, b,
-                        idn_bar);
-        }
+    drain();
+    fence_all(acc2);
+    fence_all(af);
+    // t2 = relu(acc2 + b2) in bf16: ROWS, in the group's registers as
+    // conv3's A fragments (k step i: the accumulators of columns
+    // 16i..16i+15); otherwise its columns to t2 in shared memory, where
+    // conv3 reads all of them
+    unsigned tf[C::ROWS ? CW / 16 : 1][4];
+    if constexpr (C::ROWS) {
+      const int c0 = 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < CW / 16; ++i) {
+        const float2 bl = load2(ops.b2 + 16 * i + c0);
+        const float2 bh = load2(ops.b2 + 16 * i + 8 + c0);
+        const float* a = acc2[16 * i / C::NW1] + (16 * i % C::NW1) / 2;
+        tf[i][0] = pack_bf16(fmaxf(a[0] + bl.x, 0.f), fmaxf(a[1] + bl.y, 0.f));
+        tf[i][1] = pack_bf16(fmaxf(a[2] + bl.x, 0.f), fmaxf(a[3] + bl.y, 0.f));
+        tf[i][2] = pack_bf16(fmaxf(a[4] + bh.x, 0.f), fmaxf(a[5] + bh.y, 0.f));
+        tf[i][3] = pack_bf16(fmaxf(a[6] + bh.x, 0.f), fmaxf(a[7] + bh.y, 0.f));
       }
-      acc.zero(NMAX);
-      for (int c = 0; c < kcw; ++c) {
-        const int s = acquire();
-        const bf16* base = t2 + c * KC;
-        acc.mma<false>([&](int m) { return base + (size_t)m * LT; }, wbuf(s),
-                       NMAX + kPad, C::TM);
-        release();
+    } else {
+      named_barrier(1, kGroups * 128);   // both groups are past their reads of t1
+      epilogue<1, C::N2>(acc2, ops.b2 + co2, nullptr,
+                         [&](int r, int n, float v0, float v1) {
+        const int col = co2 + n;
+        store2(t2 + (col >> 6) * C::TM * 64 + swizzled(r, col & 63), fmaxf(v0, 0.f),
+               fmaxf(v1, 0.f));
+      });
+      fence_async_shared();              // t2 is read by wgmma (the async proxy)
+      named_barrier(1, kGroups * 128);
+    }
+
+    // ---- conv3 (1x1) [+ strided 1x1 downsample] + residual + ReLU, in
+    // passes of NP columns of the group's block: ROWS, all NP = 128 of
+    // each pass; otherwise 128-column block grp of a 256-column pass, rows
+    // grp * 64.. of the one block of a 128-column last pass. Its sum goes
+    // to the group's two staging blocks, which its leader writes out by
+    // tensor-map stores of the block's 4 x 16 pixels. An identity block's
+    // x arrives in them by tensor-map loads issued before the products. ----
+    auto conv3_pass = [&](int nc, auto width) {
+      constexpr int NW3 = decltype(width)::value;       // 128, or 64
+      constexpr int NBLK = NW3 / 64;
+      constexpr int nent = C::ROWS || NW3 == 64 ? 1 : 2;
+      const int c0 = nc * C::NP + (C::ROWS ? 0 : grp * NW3);   // the group's first column
+      const int boff = C::ROWS || NW3 == 128 ? 0 : grp * 64 * KC * 2;
+      const int orow = oh0 + 4 * mb;
+      if (!g.has_ds && leader) {
+        bulk_wait_read();                  // the group's last stores are out
+        mbar_arrive_expect_tx(&sm.idn_bar[grp], NBLK * 64 * KC * 2);
+        for (int h = 0; h < NBLK; ++h)
+          tma_load_4d(ost + h * 64 * 64, dsmap, c0 + h * 64, ow0, orow, b,
+                      &sm.idn_bar[grp]);
+      }
+      constexpr int N3 = C::SHARE3 ? C::NW1 : NW3, NB3 = NW3 / N3;   // NB3 products of N3
+      constexpr int B3 = N3 * KC * 2 >> 4;       // their B rows apart, in descriptor units
+      float own[C::SHARE3 ? 1 : NW3 / 2];
+      auto& acc3 = *reinterpret_cast<float(*)[NB3][N3 / 2]>(C::SHARE3 ? acc : own);
+#pragma unroll
+      for (int c = 0; c < CW / KC; ++c) {      // unrolled: tf's index is static
+        const int s0 = rw.acquire(), s1 = nent == 2 ? rw.acquire() : s0;
+        const uint64_t db = desc(wbuf(grp == 0 ? s0 : s1) + boff);
+        wgmma_fence();
+        if constexpr (C::ROWS) {
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+            for (int h = 0; h < NB3; ++h)
+              WgmmaRS<N3>::run(acc3[h], tf[4 * c + kk], db + h * B3 + 2 * kk, c | kk);
+        } else {
+          const uint64_t da = desc(t2 + c * C::TM * 64);
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+            for (int h = 0; h < NB3; ++h)
+              WgmmaSS<N3>::run(acc3[h], da + 2 * kk, db + h * B3 + 2 * kk, c | kk);
+        }
+        issued(0, nent);
       }
       if (g.has_ds)
         for (int c = 0; c < kci; ++c) {
-          const int s = acquire();
-          const bf16* a = abuf(s);
-          acc.mma<true>([&](int m) { return a + m * KC; }, wbuf(s), NMAX + kPad,
-                        C::TM);
-          release();
+          const int sa = ra.acquire();
+          const int s0 = rw.acquire(), s1 = nent == 2 ? rw.acquire() : s0;
+          const uint64_t da = desc(abuf(sa) + mb * kBlockBytes);
+          const uint64_t db = desc(wbuf(grp == 0 ? s0 : s1) + boff);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+            for (int h = 0; h < NB3; ++h)
+              WgmmaSS<N3>::run(acc3[h], da + 2 * kk, db + h * B3 + 2 * kk, 1);
+          issued(1, nent);
         }
+      drain();
+      fence_all(acc3);
       if (g.has_ds) {
-        named_barrier(1, kConsumers);      // the leader's wait is done
+        if (leader) bulk_wait_read();
+        named_barrier(2 + grp, 128);       // the leader's wait is done
       } else {
-        mbar_wait(idn_bar, idn_ph);
+        mbar_wait(&sm.idn_bar[grp], idn_ph);
         idn_ph ^= 1;
       }
-      acc.epilogue(b3 + c0, g.has_ds ? bd + c0 : nullptr,
-                   [&](int r, int n, float v0, float v1) {
-        bf16* o = ostage + (n >> 6) * C::TM * 64 + swizzled(r, n & 63);
-        if (!g.has_ds) {
-          const float2 idn = load2(o);
-          v0 += idn.x;
-          v1 += idn.y;
-        }
-        store2(o, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-      });
+#pragma unroll
+      for (int h = 0; h < NB3; ++h) {
+        auto& part = *reinterpret_cast<float(*)[1][N3 / 2]>(acc3[h]);
+        const int n0 = h * N3;
+        epilogue<1, N3>(part, ops.b3 + c0 + n0, g.has_ds ? ops.bd + c0 + n0 : nullptr,
+                        [&](int r, int n, float v0, float v1) {
+          bf16* o = ost + ((n0 + n) >> 6) * 64 * 64 + swizzled(r, (n0 + n) & 63);
+          if (!g.has_ds) {
+            const float2 idn = load2(o);
+            v0 += idn.x;
+            v1 += idn.y;
+          }
+          store2(o, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        });
+      }
       fence_async_shared();
-      named_barrier(1, kConsumers);
+      named_barrier(2 + grp, 128);
       if (leader) {
-        for (int h = 0; h < 2; ++h)
-          tma_store_4d(&omap, ostage + h * C::TM * 64, c0 + h * 64, ow0, oh0, b);
+        for (int h = 0; h < NBLK; ++h)
+          tma_store_4d(omap, ost + h * 64 * 64, c0 + h * 64, ow0, orow, b);
         bulk_commit();
       }
+    };
+    if constexpr (C::NP == 256) {
+      for (int nc = 0; nc < full_passes; ++nc)
+        conv3_pass(nc, std::integral_constant<int, 128>());
+      if (last_pass) conv3_pass(full_passes, std::integral_constant<int, 64>());
+    } else {
+      for (int nc = 0; nc < full_passes; ++nc)
+        conv3_pass(nc, std::integral_constant<int, 128>());
     }
   }
-  if (threadIdx.x == 0) bulk_wait_all();
+  if (leader) bulk_wait_all();
+}
+
+template <int S, int CW>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+bottleneck_bf16(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap dsmap,
+                const __grid_constant__ CUtensorMap omap, const Operands ops, Geo g) {
+  using C = Cfg<S, CW>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the 128-byte swizzle needs 1024-byte aligned buffers
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  Smem sm;
+  sm.full_a = reinterpret_cast<uint64_t*>(smem);
+  sm.empty_a = sm.full_a + kAStages;
+  sm.full_w = sm.empty_a + kAStages;
+  sm.empty_w = sm.full_w + C::WS;
+  sm.idn_bar = sm.empty_w + C::WS;
+  sm.t1 = reinterpret_cast<bf16*>(smem + C::T1_OFF);
+  sm.ostage = reinterpret_cast<bf16*>(smem + C::OUT_OFF);
+  sm.ring_a = smem + C::A_OFF;
+  sm.ring_w = smem + C::W_OFF;
+  sm.w2 = reinterpret_cast<bf16*>(smem + C::W2_OFF);
+  sm.w2_bar = sm.idn_bar + kGroups;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kAStages; ++s) {
+      mbar_init(&sm.full_a[s], 1);
+      mbar_init(&sm.empty_a[s], kGroups * 4);    // one arrival per consumer warp
+    }
+    for (int s = 0; s < C::WS; ++s) {
+      mbar_init(&sm.full_w[s], 1);
+      mbar_init(&sm.empty_w[s], kGroups * 4);
+    }
+    for (int q = 0; q < kGroups; ++q) mbar_init(&sm.idn_bar[q], 1);
+    mbar_init(sm.w2_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one if/else for the roles: setmaxnreg needs paths that never reconverge
+  if (threadIdx.x >= kGroups * 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kGroups * 128) produce<S, CW>(sm, &xmap, &dsmap, ops, g);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume<S, CW>(sm, &dsmap, &omap, ops, g);
+  }
 }
 
 // A bf16 map over pixels of x [B, H, W, C] (NHWC), every `step`-th row and
@@ -444,34 +640,38 @@ bool make_map(CUtensorMap* map, const void* x, int B, int H, int W, int C,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int S>
+template <int S, int CW>
 int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                 const void* b2, const void* w3, const void* b3, const void* wd,
-                const void* bd, void* out, int B, int H, int W, int Cin, int Cw,
+                const void* bd, void* out, int B, int H, int W, int Cin,
                 int Cout, int has_ds, cudaStream_t stream) {
-  using C = Cfg<S>;
-  // once per instantiation: the largest shared memory any launch asks for
+  using C = Cfg<S, CW>;
+  static_assert(C::WS >= (C::ROWS ? 3 : 4), "two chunks' weight entries and one more");
+  static_assert(C::TM * CW * 2 <= C::T1_BYTES, "t2 fits where t1 was");
+  static_assert(C::TM * KC * 2 <= C::A_BYTES && CW * KC * 2 <= kWBytes, "entries");
+  static_assert(C::SMEM <= kMaxSmem, "shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
-      bottleneck_bf16<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      bottleneck_bf16<S, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap xmap, dsmap, omap;
   if (!make_map(&xmap, x, B, H, W, Cin, 1, C::HW, C::BOXH) ||
-      !make_map(&dsmap, x, B, H, W, Cin, S, C::TW, C::TH) ||
-      !make_map(&omap, out, B, H / S, W / S, Cout, 1, C::TW, C::TH))
+      !make_map(&dsmap, x, B, H, W, Cin, S, C::TW, has_ds ? C::TH : 4) ||
+      !make_map(&omap, out, B, H / S, W / S, Cout, 1, C::TW, 4))
     return (int)cudaErrorInvalidValue;
   Geo g;
-  g.H = H; g.W = W; g.Cin = Cin; g.Cw = Cw; g.Cout = Cout;
-  g.Ho = H / S; g.Wo = W / S; g.has_ds = has_ds; g.stages = C::stages(Cw);
+  g.H = H; g.W = W; g.Cin = Cin; g.Cw = CW; g.Cout = Cout;
+  g.Ho = H / S; g.Wo = W / S; g.has_ds = has_ds;
   g.tiles_w = (g.Wo + C::TW - 1) / C::TW;
   g.tiles_img = ((g.Ho + C::TH - 1) / C::TH) * g.tiles_w;
   g.tiles = B * g.tiles_img;
   const int grid = g.tiles < num_sms() ? g.tiles : num_sms();
-  bottleneck_bf16<S><<<grid, kThreadsBf16, C::smem(Cw), stream>>>(
-      xmap, dsmap, omap, static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(w3),
-      static_cast<const float*>(b3), static_cast<const bf16*>(wd),
-      static_cast<const float*>(bd), g);
+  Operands ops;
+  ops.w1 = static_cast<const bf16*>(w1); ops.w2 = static_cast<const bf16*>(w2);
+  ops.w3 = static_cast<const bf16*>(w3); ops.wd = static_cast<const bf16*>(wd);
+  ops.b1 = static_cast<const float*>(b1); ops.b2 = static_cast<const float*>(b2);
+  ops.b3 = static_cast<const float*>(b3); ops.bd = static_cast<const float*>(bd);
+  bottleneck_bf16<S, CW><<<grid, kThreadsBf16, C::SMEM, stream>>>(xmap, dsmap, omap,
+                                                                  ops, g);
   return (int)cudaGetLastError();
 }
 
@@ -710,14 +910,16 @@ int launch_f32(const void* x, const void* w1, const void* b1, const void* w2,
   return (int)cudaGetLastError();
 }
 
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x [B,H,W,Cin] and out [B,H/s,W/s,Cout]
 // NHWC contiguous; biases fp32. Weights: fp32 unpacked, w1 [Cin,Cw], w2
-// [9*Cw,Cw] (tap-major rows), w3 [Cw,Cout], wd [Cin,Cout]; bf16 packed into
-// 64-row chunks of rows padded by 8 zeros, in the order the kernel streams
-// them (ops/bottleneck.py, pack_operands). wd is ignored without downsample.
-// Returns the CUDA error code of the launch (0 on success).
+// [9*Cw,Cw] (tap-major rows), w3 [Cw,Cout], wd [Cin,Cout]; bf16 packed by
+// ops/bottleneck.py, pack_operands: 64-row chunks as rows of output
+// channels with the 128-byte swizzle, w1 and w2 whole, w3 and wd in
+// 128-column blocks. wd is ignored without downsample. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int bottleneck_forward(const void* x, const void* w1, const void* b1,
                                   const void* w2, const void* b2, const void* w3,
                                   const void* b3, const void* wd, const void* bd,
@@ -728,9 +930,15 @@ extern "C" int bottleneck_forward(const void* x, const void* w1, const void* b1,
   if (dtype == 0)
     return launch_f32(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin, Cw,
                       Cout, stride, has_ds, st);
+  if (stride == 1 && Cw == 64)
+    return launch_bf16<1, 64>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin,
+                              Cout, has_ds, st);
   if (stride == 1)
-    return launch_bf16<1>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin,
-                          Cw, Cout, has_ds, st);
-  return launch_bf16<2>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin,
-                        Cw, Cout, has_ds, st);
+    return launch_bf16<1, 128>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin,
+                               Cout, has_ds, st);
+  if (Cw == 64)
+    return launch_bf16<2, 64>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin,
+                              Cout, has_ds, st);
+  return launch_bf16<2, 128>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin,
+                             Cout, has_ds, st);
 }

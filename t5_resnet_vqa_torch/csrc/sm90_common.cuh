@@ -2,8 +2,8 @@
 // (cp.async, and cp.async.bulk on mbarriers: tensor-map (TMA) loads and
 // stores with the driver's map encoder, and the maps of attention heads),
 // bf16 tensor-core fragments (ldmatrix and mma.sync m16n8k16), warpgroup
-// products (wgmma, its shared-memory matrix descriptors and fences), and
-// small conversions.
+// products (wgmma with A from shared memory or registers, its
+// shared-memory matrix descriptors and fences), and small conversions.
 //
 // ops/kernel_build.py hashes every csrc/*.cuh into each library's name, so
 // an edit here rebuilds every kernel that includes this file.
@@ -326,6 +326,31 @@ SM90_WGMMA_SS(14, 224, 112, 113, 114)
 SM90_WGMMA_SS(15, 240, 120, 121, 122)
 SM90_WGMMA_SS(16, 256, 128, 129, 130)
 #undef SM90_WGMMA_SS
+
+// d[N/2] = A (64x16 from registers: a[4] in the accumulator layout of two
+// n8 blocks, as bf16 pairs; the fragment ldmatrix.x4 gives when lane l
+// addresses row l % 16 at k offset 8 (l / 16)) * B (16xN, K-major,
+// descriptor b) + (scale_d ? d : 0). A's registers are read after issue:
+// keep them unchanged until a wgmma_wait covers the group.
+template <int N> struct WgmmaRS;
+#define SM90_WGMMA_RS(G, N, A0, A1, A2, A3, B, S)                              \
+  template <> struct WgmmaRS<N> {                                              \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],              \
+                                               const unsigned (&a)[4],         \
+                                               uint64_t b, int scale_d) {      \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #S ", 0;\n"            \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " \
+                   "{" SM90_REGS_##G "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 \
+                   "}, %" #B ", p, 1, 1, 0;\n}\n"                              \
+                   : SM90_ACCS_##G                                             \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                     "r"(scale_d));                                            \
+    }                                                                          \
+  };
+SM90_WGMMA_RS(2, 32, 16, 17, 18, 19, 20, 21)
+SM90_WGMMA_RS(4, 64, 32, 33, 34, 35, 36, 37)
+SM90_WGMMA_RS(8, 128, 64, 65, 66, 67, 68, 69)
+#undef SM90_WGMMA_RS
 
 // d[32] = A (64x16 from registers: a[4] in the accumulator layout of two
 // n8 blocks, as bf16 pairs) * B (16x64, MN-major: descriptor b, rows of B

@@ -11,21 +11,33 @@ the function computes, in NHWC::
     t2  = relu(im2col3x3(t1, stride) @ w2 + b2)
     out = relu(t2 @ w3 + b3 + (x[::s, ::s] @ wd + bd  or  x))
 
-For a CUDA tensor ``fused_bottleneck`` launches ``csrc/bottleneck.cu``
-(persistent thread blocks walking 8x16 output tiles, t1 and t2 kept in
-shared memory, weights streamed through a ring of bulk copies; see the
-source note), stride 2 with downsample included. For a CPU tensor it
-returns ``bottleneck_reference``. There is no fallback: a CUDA tensor the
-kernel does not take raises. Forward only: the tower is frozen, and an
-input that requires a gradient raises (on the CPU too, so that the plain
-route behaves as the kernel's).
+For a CUDA tensor ``fused_bottleneck`` launches ``csrc/bottleneck.cu``,
+stride 2 with downsample included. In bf16 that is Hopper's warpgroup
+products (``wgmma``) in warp-specialised persistent blocks over 8x16
+output tiles (4x16 at stride 2): a producer warpgroup keeps tensor-map
+loads of the input and bulk copies of the weights in flight; two consumer
+warpgroups split conv1 over the halo by columns, then each owns an m64
+block of output pixels through conv2 (its operand read from t1 in shared
+memory into registers) and conv3 (at stride 1 with t2 kept in its
+registers). It replaces an ``mma.sync`` design. It is bound by bytes
+(by operations at stride 2 with downsample), and what it cannot keep out
+of L2 is the weights, read again for every tile; the source note says
+what the design does about each. fp32 is a CUDA-core check path.
 
-The bf16 kernel reads its weights packed: ``pack_operands`` cuts each
-folded weight into the 64-row chunks the kernel streams, in the order it
-streams them, each row padded with 8 zeros as in shared memory, so that a
-chunk is one contiguous bulk copy. ``Bottleneck`` (``models/resnet.py``)
-packs once when its weights are set and calls ``fused_bottleneck_packed``;
-``fused_bottleneck`` packs on every call. fp32 operands stay unpacked.
+For a CPU tensor it returns ``bottleneck_reference``. There is no
+fallback: a CUDA tensor the kernel does not take raises. Forward only: the
+tower is frozen, and an input that requires a gradient raises (on the CPU
+too, so that the plain route behaves as the kernel's).
+
+The bf16 kernel reads its weights packed: ``pack_weight`` cuts a folded
+[K, N] weight into 64-row chunks of n output channels each (w1 and w2:
+n = Cw, one block; w3 and wd: n = 128), each chunk stored as its n rows of
+64 input channels with the 128-byte swizzle that the kernel's ``wgmma``
+descriptors read: the 16-byte piece p (channels 8p..8p+7) of row r sits at
+piece p ^ (r % 8). No padding, so a chunk is one contiguous bulk copy.
+``Bottleneck`` (``models/resnet.py``) packs once when its weights are set
+and calls ``fused_bottleneck_packed``; ``fused_bottleneck`` packs on every
+call. fp32 operands stay unpacked.
 
 ``launches`` counts kernel launches.
 """
@@ -45,8 +57,7 @@ launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 KC = 64          # K rows per chunk (csrc KC)
-NMAX = 128       # conv3 / downsample columns per chunk (csrc NMAX)
-PAD = 8          # zeros after every chunk row (csrc kPad)
+NBLOCK = 128     # conv3 / downsample columns per packed block
 
 
 def fold_conv_bn(conv_weight: torch.Tensor, scale: torch.Tensor,
@@ -60,20 +71,32 @@ def fold_conv_bn(conv_weight: torch.Tensor, scale: torch.Tensor,
             bias.float().contiguous())
 
 
+def _swizzle_index(n: int) -> torch.Tensor:
+    """[n, 8]: the stored 16-byte piece q of row r holds piece q ^ (r % 8)
+    (an involution, so the same index packs and unpacks)."""
+    return torch.arange(8) ^ (torch.arange(n) % 8)[:, None]
+
+
 def pack_weight(w: torch.Tensor, n: int) -> torch.Tensor:
-    """[K, N] -> [N / n, K / 64, 64, n + 8]: column block j, then 64-row
-    chunk c, each row followed by 8 zeros. Flattened, it is the order in
-    which the kernel streams the chunks (w1, w2: n = N; w3, wd: n = 128)."""
+    """[K, N] -> [N / n, K / 64, n, 64]: column block j, 64-row chunk c,
+    then n rows (output channels j*n..) of 64 input channels each, 16-byte
+    piece p of row r stored at piece p ^ (r % 8). Flattened, element
+    (k, col) of w is at ((j * K/64 + c) * n + r) * 64 + 8 ((k % 64) // 8
+    ^ r % 8) + k % 8, with j, r = divmod(col, n) and c = k // 64."""
     K, N = w.shape
-    chunks = w.reshape(K // KC, KC, N // n, n).permute(2, 0, 1, 3)
-    return torch.nn.functional.pad(chunks, (0, PAD)).contiguous()
+    rows = w.reshape(K // KC, KC, N // n, n).permute(2, 0, 3, 1)
+    pieces = rows.reshape(N // n, K // KC, n, 8, 8)
+    swz = pieces[:, :, torch.arange(n)[:, None], _swizzle_index(n)]
+    return swz.reshape(N // n, K // KC, n, KC).contiguous()
 
 
 def unpack_weight(packed: torch.Tensor) -> torch.Tensor:
     """The inverse of ``pack_weight``."""
-    nb, kc, rows, n = packed.shape
-    n -= PAD
-    return packed[..., :n].permute(1, 2, 0, 3).reshape(kc * rows, nb * n)
+    nb, kc, n, _ = packed.shape
+    pieces = packed.reshape(nb, kc, n, 8, 8)
+    rows = pieces[:, :, torch.arange(n)[:, None], _swizzle_index(n)]
+    return rows.reshape(nb, kc, n, KC).permute(1, 3, 0, 2).reshape(
+        kc * KC, nb * n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,8 +116,8 @@ def pack_operands(w1, b1, w2, b2, w3, b3, wd=None, bd=None
     if w1.dtype != torch.bfloat16:
         return PackedBottleneck(plain, plain)
     kernel = (pack_weight(w1, w1.shape[1]), b1, pack_weight(w2, w2.shape[1]),
-              b2, pack_weight(w3, NMAX), b3,
-              None if wd is None else pack_weight(wd, NMAX), bd)
+              b2, pack_weight(w3, NBLOCK), b3,
+              None if wd is None else pack_weight(wd, NBLOCK), bd)
     return PackedBottleneck(plain, kernel)
 
 

@@ -6,7 +6,9 @@ covers the source, every shared header ``csrc/*.cuh`` and the compiler
 flags, so an edited source or header builds anew and an unchanged one is
 reused. ``function`` returns a library's entry point with its ctypes
 signature set once, at load time. ``build`` starts one ``nvcc`` per missing
-library, all at once, and waits for them together.
+library, all at once, and waits for them together; asked for it, it returns
+each build's ``ptxas -v`` report (registers, spills per kernel), which
+leaves the library as it is and so is not in the hash.
 
 Nothing here runs at import time: the CPU tests import every module, and a
 machine without ``nvcc`` never reaches this code (the kernel wrappers use
@@ -53,8 +55,10 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Sequence[str]) -> None:
-    """Compile every named source whose library is missing, in parallel."""
+def build(names: Sequence[str], ptxas_info: bool = False) -> Dict[str, str]:
+    """Compile every named source whose library is missing, in parallel.
+    Returns the compiler's output by name for the libraries it built
+    (``ptxas_info``: with ``-Xptxas -v``)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
     for name in names:
@@ -62,19 +66,21 @@ def build(names: Sequence[str]) -> None:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_info else ()),
+               "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed = []
+    failed, logs = [], {}
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        logs[name] = log.decode(errors="replace")
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log.decode(errors='replace')}")
+            failed.append(f"{name}:\n{logs[name]}")
         else:
             os.replace(tmp, out)     # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

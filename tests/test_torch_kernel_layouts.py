@@ -1,8 +1,11 @@
 """The layouts around the port's kernels, on the CPU.
 
 * Bottleneck operands: ``pack_operands`` cuts the folded weights into the
-  chunks ``csrc/bottleneck.cu`` streams; unpacked they are exactly
-  ``fold_conv_bn``'s. ``Bottleneck`` folds and packs once, when its weights
+  chunks ``csrc/bottleneck.cu`` streams, each as rows of output channels
+  with the 128-byte swizzle its ``wgmma`` descriptors read; unpacked they
+  are exactly ``fold_conv_bn``'s, and every element sits where the
+  kernel's offset formula (written out in the test) puts it.
+  ``Bottleneck`` folds and packs once, when its weights
   are set (construction, ``load_state_dict``, a dtype move, ``init_weights``),
   and a later ``load_state_dict`` changes the fused path's output to the new
   weights'. Compared exactly (the same fp32 fold on the same weights) and,
@@ -50,14 +53,61 @@ def _block(cin, width, stride, ds, seed=0, dtype=torch.float32):
     return block.to(dtype).eval()
 
 
+def _packed_offset(k, col, K_rows, n):
+    """Where the kernel reads element (k, col) of a [K, N] weight packed
+    with column blocks of n: block j = col // n, 64-row chunk c = k // 64,
+    row r = col % n of 64 channels (128 bytes), the 16-byte piece of
+    channel k % 64 XORed with r % 8 (the 128-byte swizzle)."""
+    j, r = divmod(col, n)
+    c, kk = divmod(k, 64)
+    return ((j * (K_rows // 64) + c) * n + r) * 64 \
+        + 8 * ((kk // 8) ^ (r % 8)) + kk % 8
+
+
+# (K, N, n): w1 and w2 at every Cw (n = Cw, one block), w3 and wd at every
+# Cw and Cout of the path (n = 128), and K of one chunk
+PACK_CASES = [(64, 64, 64), (256, 64, 64), (576, 64, 64), (512, 128, 128),
+              (1152, 128, 128), (64, 256, 128), (128, 512, 128),
+              (256, 512, 128), (128, 384, 128)]
+
+
 @pytest.mark.parametrize("n", [64, 128])
 def test_pack_weight_round_trip(n):
     w = torch.randn(192, 256, dtype=torch.float64).to(torch.bfloat16)
     packed = K.pack_weight(w, n)
-    assert packed.shape == (256 // n, 3, 64, n + K.PAD)
+    assert packed.shape == (256 // n, 3, n, 64)
     assert packed.is_contiguous()
-    assert torch.equal(packed[..., n:], torch.zeros_like(packed[..., n:]))
     assert torch.equal(K.unpack_weight(packed), w)
+
+
+@pytest.mark.parametrize("K_rows,N,n", PACK_CASES)
+def test_pack_weight_round_trip_at_every_shape(K_rows, N, n):
+    w = torch.randn(K_rows, N, dtype=torch.float64).to(torch.bfloat16)
+    packed = K.pack_weight(w, n)
+    assert packed.shape == (N // n, K_rows // 64, n, 64)
+    assert packed.numel() == w.numel()        # no padding
+    assert torch.equal(K.unpack_weight(packed), w)
+
+
+@pytest.mark.parametrize("K_rows,N,n", PACK_CASES)
+def test_pack_weight_puts_each_element_where_the_kernel_reads_it(K_rows, N,
+                                                                 n):
+    # distinct values, exact in bf16 (|v| < 256), so a misplaced element
+    # cannot match by accident
+    rng = np.random.default_rng(K_rows * 7 + N)
+    w = torch.from_numpy(rng.permutation(K_rows * N).reshape(K_rows, N)
+                         % 255 - 127).to(torch.bfloat16)
+    flat = K.pack_weight(w, n).flatten()
+    k, col = np.meshgrid(np.arange(K_rows), np.arange(N), indexing="ij")
+    offsets = torch.from_numpy(_packed_offset(k, col, K_rows, n).ravel())
+    assert sorted(offsets.tolist()) == list(range(K_rows * N))
+    assert torch.equal(flat[offsets], w.flatten())
+    # a 64-channel row is 128 contiguous bytes: piece p of row r holds
+    # channels 8 (p ^ r % 8)..
+    rows = K.pack_weight(w, n).reshape(-1, 64)
+    r = 5 % n
+    assert torch.equal(rows[r, 8 * (1 ^ (r % 8)):8 * (1 ^ (r % 8)) + 8],
+                       w[8:16, r])
 
 
 @pytest.mark.parametrize("cin,width,stride,ds", BLOCKS)
@@ -69,10 +119,13 @@ def test_packed_operands_unpack_to_the_fold(cin, width, stride, ds):
                for a, b in zip(packed.plain, plain))
     w1, b1, w2, b2, w3, b3, wd, bd = packed.kernel
     # chunk order: w1/w2 one column block of 64-row chunks; w3/wd column
-    # blocks of 128, each split into 64-row chunks
-    assert w1.shape == (1, cin // 64, 64, width + 8)
-    assert w2.shape == (1, 9 * width // 64, 64, width + 8)
-    assert w3.shape == (4 * width // 128, width // 64, 64, 136)
+    # blocks of 128, each split into 64-row chunks; a chunk is its columns
+    # as rows of 64 channels
+    assert w1.shape == (1, cin // 64, width, 64)
+    assert w2.shape == (1, 9 * width // 64, width, 64)
+    assert w3.shape == (4 * width // 128, width // 64, 128, 64)
+    if ds:
+        assert wd.shape == (4 * width // 128, cin // 64, 128, 64)
     unpacked = [K.unpack_weight(w) if w is not None and w.dim() == 4 else w
                 for w in packed.kernel]
     for got, want in zip(unpacked, plain):
@@ -92,7 +145,7 @@ def test_operands_follow_a_dtype_move():
     assert block.fused.plain[0].dtype == torch.float32
     block = block.to(torch.bfloat16)
     assert block.fused.plain[0].dtype == torch.bfloat16
-    assert block.fused.kernel[0].shape == (1, 1, 64, 72)
+    assert block.fused.kernel[0].shape == (1, 1, 64, 64)
     for got, want in zip(block.fused.plain,
                          block.fused_operands(torch.bfloat16)):
         assert (got is None and want is None) or torch.equal(got, want)

@@ -362,6 +362,11 @@ def test_attention_backward_refuses_what_it_does_not_take(cuda):
     (18, 256, 128, 2, True),    # partial tiles at stride 2
     (12, 64, 64, 1, True),      # one partial 8x16 tile per image
     (40, 256, 128, 2, True),    # 20x20 output: partial 4x16 tiles
+    (9, 64, 64, 1, True),       # the last tile row holds the last image row
+    (16, 256, 64, 1, False),    # a whole number of 8x16 tiles
+    (32, 256, 128, 2, True),    # a whole number of 4x16 tiles at stride 2
+    (18, 128, 64, 2, True),     # width 64 at stride 2
+    (24, 128, 128, 1, True),    # width 128 at stride 1 with downsample
 ])
 def test_bottleneck_kernel_matches_plain(cuda, dtype, name, H, Cin, width,
                                          stride, ds):
@@ -380,6 +385,55 @@ def test_bottleneck_kernel_matches_plain(cuda, dtype, name, H, Cin, width,
     assert got.shape == (2, H // stride, H // stride, 4 * width)
     assert _rel_err(got, want) <= BLOCK_TOL[name]
     assert _rel_err(got, module) <= BLOCK_TOL[name]
+
+
+@pytest.mark.parametrize("H,Cin,width,stride,ds", [
+    (64, 256, 64, 1, False),
+    (64, 256, 128, 2, True),
+    (9, 64, 64, 1, True),
+])
+def test_bottleneck_kernel_one_image(cuda, H, Cin, width, stride, ds):
+    """B=1: one image's tiles, fewer than the card's SMs at small H."""
+    block = Bottleneck(Cin, width, stride, ds)
+    init_weights(block, torch.Generator().manual_seed(8))
+    block = block.to(cuda, torch.bfloat16).eval()
+    x = torch.randn(1, H, H, Cin, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(9))
+    x = x.to(torch.bfloat16)
+    ops = block.fused_operands(torch.bfloat16)
+    with torch.inference_mode():
+        got = K.fused_bottleneck(x, *ops, stride=stride)
+        want = K.bottleneck_reference(x, *ops, stride=stride)
+    assert got.shape == (1, H // stride, H // stride, 4 * width)
+    assert _rel_err(got, want) <= BLOCK_TOL["bf16"]
+
+
+@pytest.mark.parametrize("dtype,name", DTYPES)
+@pytest.mark.parametrize("stride,ds,Cin", [(1, False, 384), (1, True, 128),
+                                           (2, True, 128)])
+def test_bottleneck_kernel_last_pass_of_128_columns(cuda, dtype, name,
+                                                    stride, ds, Cin):
+    """Cout = 384: two passes of the bf16 kernel's conv3, the second 128
+    columns wide (half a pass per consumer group)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=cuda, generator=g))
+
+    Cw, Cout, H = 64, 384, 20
+    x = rand(2, H, H, Cin).to(dtype)
+    ws = [rand(Cin, Cw, scale=Cin ** -0.5), rand(Cw), rand(9 * Cw, Cw,
+          scale=(9 * Cw) ** -0.5), rand(Cw), rand(Cw, Cout, scale=Cw ** -0.5),
+          rand(Cout)]
+    ws += [rand(Cin, Cout, scale=Cin ** -0.5), rand(Cout)] if ds else [None,
+                                                                      None]
+    ops = [None if t is None else (t.contiguous() if t.dim() == 1 else
+                                   t.to(dtype).contiguous()) for t in ws]
+    with torch.inference_mode():
+        got = K.fused_bottleneck(x, *ops, stride=stride)
+        want = K.bottleneck_reference(x, *ops, stride=stride)
+    assert got.shape == (2, H // stride, H // stride, Cout)
+    assert _rel_err(got, want) <= BLOCK_TOL[name]
 
 
 @pytest.mark.parametrize("dtype,name", DTYPES)
