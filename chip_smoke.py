@@ -19,7 +19,9 @@ Phases (each raises on failure; nothing is caught):
               timed in bf16 in turns with the kernel: kernel, chain, chain,
               kernel) as device time from the profiler. The build line
               gives ptxas's registers, spills and serialization warnings of
-              every bf16 bottleneck instantiation (``bottleneck_ptxas``).
+              every bf16 bottleneck instantiation (``bottleneck_ptxas``)
+              and of every short_kv attention instantiation
+              (``attention_short_ptxas``, by D and key tiles).
               Attention is also checked and timed on the head views of
               [B, S, H*D] projections, as the main path hands them over
               (``ms_head_views``); the bottleneck takes the operands its
@@ -247,27 +249,32 @@ Phases (each raises on failure; nothing is caught):
               (ViT and RoBERTa at tp=2); the kernels line gives their
               per-launch numbers under ``tp2_*``.
 
-Attention has two bf16 routes (``ops/attention.py``, ``_route``): the TMA +
-wgmma kernel takes D=64 with 64 <= Sq, Sk <= 256 (the ViT and RoBERTa
-self-attentions), the ``mma.sync`` kernel everything else (the SGA
-blocks). The kernel phase checks each case's route, holds the ``mma.sync``
-route (forced through ``_launch(..., route="mma_sync")``) against the plain
-version at the wgmma route's shapes too and times the two in turns (old,
-new, new, old: ``ms`` is the new route's mean, ``mma_sync_ms`` the old
-one's); ``kernel_edges`` holds the bf16 routes at the edges of the wgmma
-route's range (Sq=Sk=64, 65, 128, 256; Sq=197 over 64 keys; Sq=16 over
-197 keys, which keeps ``mma_sync``), contiguous and on head views, and the
-backward there. The serve, serve_vit, serve_frcnn, serve_cross, train
-timing and mesh lines check the launches by route: 6 SGA launches per
-forward through ``mma_sync``; 12 per ViT forward, 24 per cross-attention
-forward, 12 per cache-off or fine-tuned ViT step, 24 per cross-attention
-step and 12 per tp=2 rank's ViT forward through ``wgmma``. The train
-timing lines check the backward passes by route
-(``attention_bwd_routes``): 12 through the backward kernel and none
-through the plain VJP per fine-tuned ViT step and per cross-attention
-step, 6 through the plain VJP per CNN step at dropout 0 (the SGA), none
-elsewhere; each line also gives the step's peak device memory
-(``step_peak_mib``).
+Attention has three bf16 routes (``ops/attention.py``, ``_route``): the TMA
++ wgmma kernel takes D=64 with 64 <= Sq, Sk <= 256 (the ViT and RoBERTa
+self-attentions), the short_kv kernel (persistent blocks fed by TMA,
+mma.sync, one pass) 1 <= Sq, Sk <= 64 with D a multiple of 16 (the SGA
+blocks), the ``mma.sync`` kernel everything else. The kernel phase checks
+each case's route, holds the ``mma.sync`` route (forced through
+``_launch(..., route="mma_sync")``) against the plain version at the wgmma
+and short_kv routes' shapes too and times the two in turns (old, new, new,
+old: ``ms`` is the new route's mean, ``mma_sync_ms`` the old one's);
+``kernel_edges`` holds the bf16 routes at the edges of the wgmma route's
+range (Sq=Sk=64, 65, 128, 256; Sq=197 over 64 keys; Sq=16 over 197 keys,
+which keeps ``mma_sync``), contiguous and on head views, and the backward
+there, and at the short_kv route's edges (Sk 1, 15, 17, 63; Sq 1, 17, 64;
+D 16 and 128; 512 batches, whose blocks wrap their ring of stages; Sk=65,
+which keeps ``mma_sync``). The serve, serve_vit, serve_frcnn, serve_cross,
+train timing, serve_from_checkpoint, heatmaps, http and mesh lines check
+the launches by route: 6 SGA launches per forward or dropout-0 step
+through ``short_kv`` (``fp32`` in the mesh's fp32 steps), none through
+``mma_sync``; 12 per ViT forward, 24 per cross-attention forward, 12 per
+cache-off or fine-tuned ViT step, 24 per cross-attention step and 12 per
+tp=2 rank's ViT forward through ``wgmma``. The train timing lines check
+the backward passes by route (``attention_bwd_routes``): 12 through the
+backward kernel and none through the plain VJP per fine-tuned ViT step
+and per cross-attention step, 6 through the plain VJP per CNN step at
+dropout 0 (the SGA), none elsewhere; each line also gives the step's peak
+device memory (``step_peak_mib``).
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
@@ -302,7 +309,10 @@ cases. Attention's ``vit_ms``, ``vit_plain_ms``, ``vit_bound_ms`` and
 D=64, bf16), and so are ``vit_bwd_ms`` and ``vit_plain_bwd_ms``; the
 ``cross_*`` numbers likewise at the RoBERTa shape (B=64, H=12, S=213,
 D=64, bf16), with ``vit_mma_sync_ms`` the ``mma.sync`` route's time in
-the same turns; ``route_launches``, ``vit_route_launches``,
+the same turns; ``sga_route`` is the SGA's route, ``mma_sync_ms`` the
+``mma.sync`` route's time per forward in the same turns, and
+``sga_sk16_*`` / ``sga_sk64_*`` the per-launch numbers at H=8 (B=64,
+D=96, Sq=16); ``route_launches``, ``vit_route_launches``,
 ``frcnn_route_launches``, ``cross_route_launches`` and
 ``mesh_vit_route_launches_per_forward_per_rank`` split the attention
 launches of those runs by route. The ``attention_backward`` entry is the
@@ -497,7 +507,9 @@ def phase_build(torch, card):
           "device": torch.cuda.get_device_name(0), "card": card,
           "capability": list(cap), "build_dir": kernel_build.BUILD_DIR,
           "bottleneck_ptxas": ptxas_report(logs.get("bottleneck", ""),
-                                           "bottleneck_bf16")})
+                                           "bottleneck_bf16"),
+          "attention_short_ptxas": ptxas_report(logs.get("attention", ""),
+                                                "attention_short")})
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
@@ -543,7 +555,8 @@ ATTENTION_CASES = [       # name, B, H, Sq, Sk, D, launches per forward
     ("cross_s213_tp2", BATCH, 6, CROSS_SEQ, CROSS_SEQ, 64, 0),
 ]
 # the kernel phase's per-launch numbers kept for the kernels line, by case
-PER_LAUNCH_CASES = {"vit_s197": "vit", "cross_s213": "cross",
+PER_LAUNCH_CASES = {"sga_sk16": "sga_sk16", "sga_sk64": "sga_sk64",
+                    "vit_s197": "vit", "cross_s213": "cross",
                     "sga_sk16_tp2": "tp2_sga_sk16",
                     "sga_sk64_tp2": "tp2_sga_sk64",
                     "vit_s197_tp2": "tp2_vit_s197",
@@ -554,8 +567,8 @@ def phase_attention(torch):
     import torch.nn.functional as F
     from t5_resnet_vqa_torch.ops import attention as A
 
-    per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "bytes_ms": 0.0, "ops_ms": 0.0,
+    per_forward = {"ms": 0.0, "mma_sync_ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                    "library_ms": 0.0, "max_abs_err": 0.0, "bwd_ms": 0.0,
                    "plain_bwd_ms": 0.0, "library_bwd_ms": 0.0,
                    "bwd_bound_ms": 0.0, "bwd_max_abs_err": 0.0}
@@ -571,7 +584,7 @@ def phase_attention(torch):
                           for t in (q, k, v))
             route = A._route(qv, kv, vv)
             want_route = ("fp32" if dtype_name == "float32" else
-                          "wgmma" if D == 64 else "mma_sync")
+                          "wgmma" if D == 64 else "short_kv")
             if route != want_route or A._route(q, k, v) != route:
                 raise AssertionError(f"attention {name} {dtype_name}: route "
                                      f"{route}, expected {want_route}")
@@ -587,8 +600,8 @@ def phase_attention(torch):
                         f"{a} ({r} of max|ref|) > {ATT_TOL[dtype_name]}")
                 abs_err, rel = max(abs_err, a), max(rel, r)
             older = {}
-            if route == "wgmma":
-                # today's mma.sync route on the same inputs: checked, then
+            if route in ("wgmma", "short_kv"):
+                # the mma.sync route on the same inputs: checked, then
                 # timed in turns with the new one (old, new, new, old)
                 a, r = rel_err(A._launch(qv, kv, vv, route="mma_sync"), want)
                 if not r <= ATT_TOL[dtype_name]:
@@ -636,7 +649,9 @@ def phase_attention(torch):
                     "bound_by": bound_by(t_bytes, t_ops),
                     "max_abs_err": abs_err, **bwd}
             if dtype_name == "bfloat16" and n_fwd:
+                per_forward["route"] = route
                 per_forward["ms"] += n_fwd * ms
+                per_forward["mma_sync_ms"] += n_fwd * older["mma_sync_ms"]
                 per_forward["plain_ms"] += n_fwd * plain_ms
                 per_forward["library_ms"] += n_fwd * lib_ms
                 for key in ("bwd_ms", "plain_bwd_ms", "library_bwd_ms",
@@ -655,11 +670,21 @@ ATTENTION_EDGES = [(64, 64, "wgmma"), (65, 65, "wgmma"), (128, 128, "wgmma"),
                    (256, 256, "wgmma"), (197, 64, "wgmma"),
                    (16, 197, "mma_sync")]
 EDGE_BATCH, EDGE_HEADS = 8, 12
+# the short_kv route's edges (bf16, 1 <= Sq, Sk <= 64, D a multiple of 16):
+# Sq, Sk, D, the batch and the route each must take; at batch 512 each
+# block's ring of stages wraps several times (6144 heads over <= 132 blocks)
+SHORT_KV_EDGES = [(16, 1, 96, 8, "short_kv"), (16, 15, 96, 8, "short_kv"),
+                  (16, 17, 96, 8, "short_kv"), (16, 63, 96, 8, "short_kv"),
+                  (1, 64, 96, 8, "short_kv"), (17, 64, 96, 8, "short_kv"),
+                  (64, 64, 96, 8, "short_kv"), (16, 64, 16, 8, "short_kv"),
+                  (16, 64, 128, 8, "short_kv"), (16, 64, 96, 512, "short_kv"),
+                  (16, 65, 96, 8, "mma_sync")]
 
 
 def phase_attention_edges(torch):
-    """The bf16 routes at the edges of the wgmma route's range, contiguous
-    and on head views, against the plain version (ATT_TOL); and the
+    """The bf16 routes at the edges of the wgmma and short_kv routes'
+    ranges, contiguous and on head views, against the plain version
+    (ATT_TOL); and, at the wgmma route's edges, the
     backward there (the kernel where the forward takes the wgmma route, the
     plain VJP elsewhere, one pass counted on its route) against the plain
     VJP, the gradient as the main path hands it back."""
@@ -715,6 +740,39 @@ def phase_attention_edges(torch):
                           "bwd_max_abs_err": bwd_a, "bwd_rel_err": bwd_r})
     emit({"phase": "kernel_edges", "kernel": "attention", "dtype": "bfloat16",
           "batch": EDGE_BATCH, "heads": EDGE_HEADS, "D": 64,
+          "tol": ATT_TOL["bfloat16"], "cases": cases})
+    # the short_kv route's edges, forward only (its backward is the plain
+    # VJP, held above wherever the route is not wgmma)
+    cases = []
+    for Sq, Sk, D, B, want_route in SHORT_KV_EDGES:
+        g = torch.Generator(device=DEVICE).manual_seed(Sq * 1000 + Sk + D)
+        for views in (False, True):
+            if views:
+                q, k, v = (torch.randn(B, s, EDGE_HEADS * D, device=DEVICE,
+                                       generator=g).to(torch.bfloat16)
+                           .reshape(B, s, EDGE_HEADS, D).transpose(1, 2)
+                           for s in (Sq, Sk, Sk))
+            else:
+                q, k, v = (torch.randn(B, EDGE_HEADS, s, D, device=DEVICE,
+                                       generator=g).to(torch.bfloat16)
+                           for s in (Sq, Sk, Sk))
+            before = route_counts(A)
+            got = A.fused_attention(q, k, v)
+            want = A.attention_reference(q, k, v)
+            torch.cuda.synchronize()
+            check_routes(f"attention edge Sq={Sq} Sk={Sk} D={D} B={B}",
+                         routes_since(A, before), {want_route: 1})
+            a, r = rel_err(got, want)
+            if not r <= ATT_TOL["bfloat16"]:
+                raise AssertionError(
+                    f"attention edge Sq={Sq} Sk={Sk} D={D} B={B} "
+                    f"views={views}: max-abs error {a} ({r} of max|ref|) > "
+                    f"{ATT_TOL['bfloat16']}")
+            cases.append({"Sq": Sq, "Sk": Sk, "D": D, "batch": B,
+                          "head_views": views, "route": want_route,
+                          "max_abs_err": a, "rel_err": r})
+    emit({"phase": "kernel_edges", "kernel": "attention", "dtype": "bfloat16",
+          "heads": EDGE_HEADS, "routes": "short_kv",
           "tol": ATT_TOL["bfloat16"], "cases": cases})
 
 
@@ -993,7 +1051,7 @@ def phase_serve(torch, card):
                              f"per forward over {CHUNKS} forwards")
     launches["attention_routes"] = routes_since(A, routes)
     check_routes("CNN serve", launches["attention_routes"],
-                 {"mma_sync": 6 * CHUNKS})
+                 {"short_kv": 6 * CHUNKS})
     if len(results) != len(requests) or \
             not all(r["answer"] in answers for r in results):
         raise AssertionError("answers missing or outside the answer space")
@@ -1399,7 +1457,7 @@ def _build_cross_model(torch, dtype, use_kernels, dropout=True):
 # of the trainer's config
 FAMILIES = {
     "frcnn": {"session": "cnn", "build": _build_frcnn_model, "size": IMAGE,
-              "launches": (6, 7), "route": "mma_sync", "vision": "faster-rcnn",
+              "launches": (6, 7), "route": "short_kv", "vision": "faster-rcnn",
               "lang": "t5-base", "model": "resnet50-fpn + t5-base + 3xSGA"},
     "cross": {"session": "cross_attention", "build": _build_cross_model,
               "size": VIT_IMAGE, "launches": (24, 0), "route": "wgmma",
@@ -1892,15 +1950,20 @@ def phase_train(torch, card):
             _build_model(torch, torch.float32, flag), torch.device(DEVICE),
             torch.bfloat16).train() for flag in (True, False)}
         time_pair(models, True, TRAIN_ROUNDS)
-        # the SGA's backward passes: the plain VJP (D=96), only at dropout 0
-        # (production SGA dropout takes the plain path both ways)
-        for dropout, want in ((False, {"plain": 6}), (True, {})):
-            for label, bwd in (("kernels_on", want), ("kernels_off", {})):
-                check_bwd_routes(
-                    f"CNN {label} train step, dropout "
-                    f"{'production' if dropout else 0}",
-                    timing[dropout][label]["launches_per_step"]
-                    ["attention_bwd_routes"], bwd)
+        # the SGA's forwards on the short_kv route and their backward
+        # passes on the plain VJP (D=96), only at dropout 0 (production SGA
+        # dropout takes the plain path both ways)
+        for dropout, fwd, bwd in ((False, {"short_kv": 6}, {"plain": 6}),
+                                  (True, {}, {})):
+            for label in ("kernels_on", "kernels_off"):
+                what = (f"CNN {label} train step, dropout "
+                        f"{'production' if dropout else 0}")
+                got = timing[dropout][label]["launches_per_step"]
+                on = label == "kernels_on"
+                check_routes(what, got["attention_routes"],
+                             fwd if on else {})
+                check_bwd_routes(what, got["attention_bwd_routes"],
+                                 bwd if on else {})
         del models
         torch.cuda.empty_cache()
     finally:
@@ -2377,6 +2440,10 @@ SERVED_LAUNCHES = {
     "vit": ((12, 0), "vit-base + t5-base enc-dec"),
     **{f: (spec["launches"], spec["model"]) for f, spec in FAMILIES.items()},
 }
+# per family: the bf16 route of its attention launches (the SGA's short_kv,
+# the ViT's and RoBERTa's wgmma); no main path launches mma_sync
+SERVED_ROUTES = {"cnn": "short_kv", "vit": "wgmma",
+                 **{f: spec["route"] for f, spec in FAMILIES.items()}}
 
 
 def resume_setup(torch, family, out_dir):
@@ -2717,7 +2784,8 @@ def trace_epoch(torch, card):
         path = os.path.join(cfg.trainer.trace_dir, files[0])
         with open(path) as f:
             text = f.read()
-        names = {k: k in text for k in ("attention_bf16", "bottleneck_bf16")}
+        # the SGA's attention runs attention_short (the short_kv route)
+        names = {k: k in text for k in ("attention_short", "bottleneck_bf16")}
         if not all(names.values()):
             raise AssertionError(f"the trace names the kernels: {names}")
         return {"file": files[0], "bytes": os.path.getsize(path),
@@ -2787,8 +2855,10 @@ def serve_from_checkpoint_family(torch, card, family):
             from_checkpoint_s = time.perf_counter() - t0
             A.launches = 0
             K.launches = 0
+            routes = route_counts(A)
             results = session.ask_batch(requests, top_k=ANSWERS)
             launches = {"attention": A.launches, "bottleneck": K.launches}
+            routes = routes_since(A, routes)
             # the trainer's eval step on the requests as the session
             # collates them, and as validation does: the ViT trainer trims
             # trailing pad columns (adaptive_question_len), the session keeps
@@ -2815,6 +2885,8 @@ def serve_from_checkpoint_family(torch, card, family):
         if launches != want_launches:
             raise AssertionError(f"served launches {launches}, expected "
                                  f"{want_launches}")
+        check_routes(f"{family} served from a checkpoint", routes,
+                     {SERVED_ROUTES[family]: want_launches["attention"]})
         if not (diff <= SERVED_TOL and top1_equal):
             raise AssertionError(f"served log-probs {diff} from the "
                                  f"trainer's eval (tolerance {SERVED_TOL}),"
@@ -2950,6 +3022,7 @@ def heatmap_family(torch, card, family, session, data):
     torch.cuda.synchronize()
     A.launches = 0
     K.launches = 0
+    routes = route_counts(A)
     out = step(model)
     topk = out["topk"].cpu().numpy()
     maps = out["maps"].cpu().numpy()
@@ -2958,6 +3031,9 @@ def heatmap_family(torch, card, family, session, data):
     if launches != want:
         raise AssertionError(f"{family} heatmap launches {launches}, "
                              f"expected {want}")
+    check_routes(f"{family} heatmap", routes_since(A, routes),
+                 {SERVED_ROUTES[family]: want["attention"]}
+                 if want["attention"] else {})
     # C5 (stride 32), the FPN's pool level (stride 64), 16x16 patches
     grid = {"cnn": IMAGE // 32, "frcnn": IMAGE // 64,
             "vit": VIT_IMAGE // 16}[family]
@@ -3159,6 +3235,7 @@ def http_family(torch, card, family, session, data):
             direct_s = time.perf_counter() - t0
             A.launches = 0
             K.launches = 0
+            routes = route_counts(A)
             status, health = _http(server, "GET", "/healthz")
             t0 = time.perf_counter()
             singles = [_http(server, "POST", "/v1/ask", b) for b in bodies]
@@ -3170,6 +3247,7 @@ def http_family(torch, card, family, session, data):
                               for p, q in requests], "top_k": 3})
             batch_s = time.perf_counter() - t0
             launches = {"attention": A.launches, "bottleneck": K.launches}
+            routes = routes_since(A, routes)
             generated = {}
             body = {"image_path": requests[0][0], "question": requests[0][1],
                     "max_answer_length": GEN_TOKENS}
@@ -3195,6 +3273,8 @@ def http_family(torch, card, family, session, data):
         if launches != want:
             raise AssertionError(f"{family} launches over 64 asks and one "
                                  f"ask_batch {launches}, expected {want}")
+        check_routes(f"{family} over HTTP", routes,
+                     {SERVED_ROUTES[family]: want["attention"]})
         if any(st != 200 for st, _ in singles) or batch_status != 200:
             raise AssertionError(f"{family}: HTTP statuses "
                                  f"{[st for st, _ in singles]} {batch_status}")
@@ -3599,7 +3679,7 @@ def mesh_train(torch, cfg, batches, mesh, dtype, dropout=False):
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
     rows = mesh.batch_rows(BATCH)
-    losses, counts, times = [], [], []
+    losses, counts, routes, times = [], [], [], []
     for i, batch in enumerate(batches):
         local = {k: v[rows] for k, v in batch.items()}
         torch.cuda.synchronize()
@@ -3607,12 +3687,13 @@ def mesh_train(torch, cfg, batches, mesh, dtype, dropout=False):
             torch.cuda.reset_peak_memory_stats(mesh.device)
             held = torch.cuda.memory_allocated(mesh.device)
         t0 = time.perf_counter()
-        a0, k0 = A.launches, K.launches
+        a0, k0, r0 = A.launches, K.launches, route_counts(A)
         loss, _ = step(local)
         loss = float(shd.mean_over_data(loss.detach().float(), mesh))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts.append([A.launches - a0, K.launches - k0])
+        routes.append(routes_since(A, r0))
         losses.append(loss)
     peak = torch.cuda.max_memory_allocated(mesh.device) - held
     named = dict(model.named_parameters())
@@ -3627,6 +3708,7 @@ def mesh_train(torch, cfg, batches, mesh, dtype, dropout=False):
                          device=mesh.device), mesh.tp_group))
     q_rows = model.sga_modules[0].mhatt1.linear_q.weight.shape[0]
     record = {"losses": losses, "launches_per_step": counts,
+              "routes_per_step": routes,
               "step_ms": times, "update_l2": sq ** 0.5,
               "last_step_peak_mib": peak / 2 ** 20,
               "sga_heads": q_rows // 96, "rows": rows.stop - rows.start}
@@ -3668,10 +3750,10 @@ def mesh_trainer(torch, rank, out_dir):
 
         def counted(kind, fn):
             def step(batch):
-                a0, k0 = A.launches, K.launches
+                a0, k0, r0 = A.launches, K.launches, route_counts(A)
                 out = fn(batch)
                 calls[kind].append([A.launches - a0, K.launches - k0,
-                                    out[0]])
+                                    out[0], routes_since(A, r0)])
                 return out
             return step
 
@@ -3693,6 +3775,7 @@ def mesh_trainer(torch, rank, out_dir):
         rec = {"launches_cache_build": build,
                "launches_per_train_step": [c[:2] for c in calls["train"]],
                "launches_per_eval_forward": [c[:2] for c in calls["eval"]],
+               "routes": [c[3] for c in calls["train"] + calls["eval"]],
                "losses": losses.cpu().tolist(), "epoch_s": epoch_s,
                "cache_pinned": cache is not None and
                cache.features.is_pinned()}
@@ -3846,9 +3929,12 @@ def _check_mesh_train(results, one_key, shapes, dtype_name):
     launches (6 attention at H/tp, 7 bottleneck per step at B/dp), losses
     and the update's L2 within the gates."""
     one = results[0]["train"][one_key]
-    if one["launches_per_step"] != [[6, 7]] * MESH_STEPS:
+    route = "short_kv" if dtype_name == "bfloat16" else "fp32"
+    if one["launches_per_step"] != [[6, 7]] * MESH_STEPS or \
+            one["routes_per_step"] != [{route: 6}] * MESH_STEPS:
         raise AssertionError(f"{one_key}: launches "
-                             f"{one['launches_per_step']} per step")
+                             f"{one['launches_per_step']} per step, routes "
+                             f"{one['routes_per_step']}")
     line = {}
     for shape in shapes:
         key = f"{dtype_name}_{_shape_name(shape)}"
@@ -3858,11 +3944,13 @@ def _check_mesh_train(results, one_key, shapes, dtype_name):
             raise AssertionError(f"{key}: {len(ranks)} ranks ran")
         for rec in ranks:
             if rec["launches_per_step"] != one["launches_per_step"] or \
+                    rec["routes_per_step"] != one["routes_per_step"] or \
                     rec["sga_heads"] != 8 // tp or \
                     rec["rows"] != BATCH // dp:
                 raise AssertionError(
                     f"{key}: launches {rec['launches_per_step']} per step, "
-                    f"{rec['sga_heads']} SGA heads, {rec['rows']} rows")
+                    f"routes {rec['routes_per_step']}, {rec['sga_heads']} "
+                    f"SGA heads, {rec['rows']} rows")
         rec = ranks[0]
         if dtype_name == "bfloat16":
             loss_diff = max(abs(a - b) for a, b in
@@ -3915,7 +4003,9 @@ def _check_mesh_dropout(results):
         one = one or ranks[0]
         if len(ranks) != shape[0] * shape[1] or any(
                 not np.isfinite(rec["losses"]).all() or
-                rec["launches_per_step"] != one["launches_per_step"]
+                rec["launches_per_step"] != one["launches_per_step"] or
+                rec["routes_per_step"] != one["routes_per_step"] or
+                any("mma_sync" in r for r in rec["routes_per_step"])
                 for rec in ranks):
             raise AssertionError(f"{key}: {ranks}")
         line[key] = {"losses": ranks[0]["losses"],
@@ -3937,7 +4027,8 @@ def _check_mesh_trainer(results):
     chunks = results[0]["trainer"]["cache_chunks"]
     want = {"launches_cache_build": [0, 7 * chunks],
             "launches_per_train_step": [[6, 0]] * MESH_TRAINER_BATCHES[0],
-            "launches_per_eval_forward": [[6, 0]] * MESH_TRAINER_BATCHES[1]}
+            "launches_per_eval_forward": [[6, 0]] * MESH_TRAINER_BATCHES[1],
+            "routes": [{"short_kv": 6}] * sum(MESH_TRAINER_BATCHES)}
     ranks = [r["trainer"]["mesh"] for r in results]
     for rec in [one] + ranks:
         got = {k: rec[k] for k in want}
@@ -4182,8 +4273,12 @@ def main() -> int:
         "mesh_vit_route_launches_per_forward_per_rank":
             mesh["vit_routes_per_forward_per_rank"]})
     kernels[0].update({f"cross_{k}": v for k, v in cross.items()})
-    for case in ("tp2_sga_sk16", "tp2_sga_sk64", "tp2_vit_s197",
-                 "tp2_cross_s213"):
+    # the SGA's route (short_kv) and, per forward, the mma_sync route's
+    # time in the same turns; per launch at each SGA case below
+    kernels[0].update({"sga_route": att["route"],
+                       "mma_sync_ms": att["mma_sync_ms"]})
+    for case in ("sga_sk16", "sga_sk64", "tp2_sga_sk16", "tp2_sga_sk64",
+                 "tp2_vit_s197", "tp2_cross_s213"):
         kernels[0].update({f"{case}_{k}": v for k, v in att[case].items()})
     kernels[0].update({"bwd_ms": att["bwd_ms"],
                        "plain_bwd_ms": att["plain_bwd_ms"],

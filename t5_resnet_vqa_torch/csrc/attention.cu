@@ -7,14 +7,19 @@
 // rounded to the value dtype, P.V accumulated in fp32, output cast to the
 // query dtype.
 //
-// Three routes, chosen by the Python wrapper (ops/attention.py, _route) by
+// Four routes, chosen by the Python wrapper (ops/attention.py, _route) by
 // geometry alone:
 //  * attention_forward_tma, bf16 with D = 64, 64 <= Sq, Sk <= 256 and
 //    tensor-map readable strides (every base and stride a multiple of 16
 //    bytes): TMA + wgmma, one pass over the keys. The ViT (S=197) and
 //    RoBERTa (S=213) self-attentions.
-//  * attention_forward, bf16 otherwise: mma.sync tiles of 16 query rows.
-//    The SGA blocks (H=8, D=96, Sq=16, Sk<=64).
+//  * attention_forward_short, bf16 with 1 <= Sq, Sk <= 64, D a multiple of
+//    16 and tensor-map readable strides (outside the wgmma route's
+//    domain): persistent blocks fed by TMA, one pass over the keys,
+//    mma.sync. The SGA blocks (H=8 or 4 at tp=2, D=96, Sq=16, Sk=16, 64).
+//  * attention_forward, bf16 otherwise: mma.sync tiles of 16 query rows,
+//    two passes over the keys (Sk up to 256, D even, any 4-byte aligned
+//    rows).
 //  * attention_forward, fp32: CUDA cores, a check path.
 //
 // What bounds it on an H100: bytes. At the SGA geometry each head does
@@ -72,6 +77,49 @@
 //    One instantiation per N (64..256 in steps of 16): the products'
 //    widths are compile-time.
 //
+// bf16, short rows (attention_forward_short): the SGA's geometry.
+//  * What bounds it: bytes, and before them latency. Each head moves
+//    (2 Sq + 2 Sk) D bf16 for 4 Sq Sk D FLOPs, about 16 FLOPs a byte at
+//    Sq = 16, Sk = 64, D = 96. A CNN forward's six launches at B=64, H=8
+//    move 6.29 MB (Sk=16: 1.88 us at 3.35 TB/s) or 15.7 MB (Sk=64: 4.69
+//    us); the products take under a microsecond of tensor-core time. So
+//    the design keeps each SM's share of the bytes in flight at once and
+//    the launch's fixed cost small. It replaces, for these calls, the
+//    mma.sync route below: one block of one warp per head (2-4 warps an
+//    SM), K and V staged and waited for before any product, two passes
+//    over the keys, fragments sized for D = 128.
+//  * Persistent blocks, one per SM (at most B*H): block i takes heads i,
+//    i + grid, ...; 4 consumer warps take the block's heads in turn
+//    (warp w its w-th, w+4-th, ...) and one producer thread keeps a ring
+//    of up to 8 stages loading ahead of them, as many as fit in shared
+//    memory (4 at Sq = Sk = 64, D = 128). At B=64, H=8 a block holds its
+//    3-4 heads in flight at once; larger batches wrap the ring.
+//  * Each stage is one head: three TMA boxes (Q, K, V) over the caller's
+//    strided [B, H, S, D] views as 4-D maps (D, S, H, B), on one mbarrier.
+//    A D = 96 row is 192 bytes, which no swizzle mode covers (128 bytes is
+//    the widest), and unswizzled rows 48 words apart put 4 rows of every
+//    ldmatrix on one bank. So the maps have no swizzle and a box of D + 8
+//    columns: the 8 past D lie outside the tensor and read as zeros, and
+//    the rows land padded, (D + 8) * 2 bytes apart, an odd number of
+//    16-byte units, so the 8 rows of an ldmatrix hit 8 distinct bank
+//    groups. Rows past Sq or Sk (to 16-row tiles) read as zeros too.
+//  * The products are mma.sync m16n8k16, not wgmma: wgmma takes 64 rows,
+//    so at Sq = 16 three quarters of each product would be padding, and
+//    the products are a small part of the bound's time here.
+//  * One pass over the keys: a warp owns 16 query rows, and a row of at
+//    most 64 scores fits in its quad's registers (S for all keys as
+//    2 ceil(Sk/16) fp32 m16n8 fragments, 8 ceil(Sk/16) floats a thread).
+//    Padded keys are -inf before the max; max and sum come from two quad
+//    shuffles each; P = exp(S - max) * (1 / sum) is formed in fp32 and
+//    rounded to bf16 only after it is normalised (the reference's rounding
+//    point), straight from the accumulator fragments into A fragments; P V
+//    accumulates in fp32. A head with Sq > 16 takes the warp's tiles one
+//    after another.
+//  * The output leaves through a per-warp staging tile in shared memory in
+//    16-byte stores to [B, Sq, H, D]; rows past Sq are not written.
+//  * Registers are sized for the compile-time D and key-tile count: one
+//    instantiation per (D, ceil(Sk / 16)), D = 16..128 in steps of 16.
+
 // bf16, other shapes (attention_forward): mma.sync m16n8k16.
 //  * A block of 4 warps stages K and V of its heads in shared memory with
 //    16-byte cp.async copies (4-byte where a view's rows are not 16-byte
@@ -557,6 +605,267 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 
 }  // namespace tma
 
+// ========================== bf16, short rows: persistent TMA ring + mma.sync
+
+namespace shortkv {
+
+constexpr int kMaxS = 64;                   // Sq and Sk: four 16-row tiles
+constexpr int kWarps = 4;                   // consumer warps
+constexpr int kThreads = (kWarps + 1) * 32;  // + the producer warp
+constexpr int kMaxStages = 8;
+
+struct Geo {
+  int items, H, Sq, Sk;       // items = B * H heads
+  int stages;                 // ring depth, <= kMaxStages
+  unsigned q_bytes;           // a stage's Q box: round16(Sq) padded rows
+  unsigned kv_bytes;          // its K box, and its V box: round16(Sk) rows
+  float scale_log2;           // log2(e) / sqrt(D)
+};
+
+// Shared memory: 128 bytes of alignment slack, 128 for the barriers, the
+// stages, and one 16-row staging tile per consumer warp.
+inline size_t smem_bytes(int stages, unsigned stage_bytes, int D) {
+  return 256 + (size_t)stages * stage_bytes + (size_t)kWarps * 16 * (D + 8) * 2;
+}
+
+// One 16-row query tile of a head, by one warp: S = Q K^T over all keys
+// in registers, the softmax of each row in one pass, P V, and the rows out
+// to o[b, row0 + r, h, :]. qs, ks and vs hold padded rows (D + 8 apart);
+// rows past Sk are zeros.
+template <int D, int NK>
+__device__ __forceinline__ void tile(const bf16* qs, const bf16* ks, const bf16* vs,
+                                     bf16* ostg, bf16* __restrict__ o, int b,
+                                     int h, int row0, const Geo& g) {
+  constexpr int LD = D + 8, KD = D / 16, NJ = 2 * NK;
+  const int lane = threadIdx.x & 31;
+
+  unsigned qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldmatrix_x4(qa[kk], qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+
+  // ---- S = Q K^T: n8 block j holds keys 8j + 2(lane % 4) + {0, 1} of rows
+  // lane/4 (elements 0, 1) and lane/4 + 8 (2, 3) ----
+  float s[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  // ldmatrix x4 on K rows: matrix i = lane / 8 covers keys 8(i / 2)..+7 at
+  // k offset 8(i % 2), the B fragments of a key tile's two n8 blocks
+  const bf16* kp = ks + ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int t = 0; t < NK; ++t) {
+    unsigned kb[KD][4];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(kb[kk], kp + t * 16 * LD + kk * 16);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      mma_bf16(s[2 * t], qa[kk], kb[kk][0], kb[kk][1]);
+      mma_bf16(s[2 * t + 1], qa[kk], kb[kk][2], kb[kk][3]);
+    }
+  }
+
+  // ---- softmax of rows r (e < 2) and r + 8 (e >= 2), in one pass: padded
+  // keys, all in the last key tile, are -inf before the max ----
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = NJ - 2; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (8 * j + c0 + (e & 1) >= g.Sk) s[j][e] = -INFINITY;
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+    mx[half] *= g.scale_log2;
+  }
+  // exp(x / sqrt(D) - max / sqrt(D)) as 2^(x c - max c), c = log2(e) / sqrt(D)
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[j][e], g.scale_log2, -mx[e >> 1]));
+      s[j][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
+    sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
+    sum[half] = 1.f / sum[half];
+  }
+
+  // ---- O = P V: P normalised in fp32, then rounded to bf16 (the
+  // accumulators of two n8 blocks are the A fragment of one k16 step); V
+  // by ldmatrix x4.trans: lane l addresses key row l % 16 at column
+  // 8 (l / 16), registers 0, 1 feed d-block 2jd and 2, 3 d-block 2jd + 1 ----
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const bf16* vp = vs + (lane & 15) * LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int t = 0; t < NK; ++t) {
+    const unsigned pa[4] = {
+        pack_bf16(s[2 * t][0] * sum[0], s[2 * t][1] * sum[0]),
+        pack_bf16(s[2 * t][2] * sum[1], s[2 * t][3] * sum[1]),
+        pack_bf16(s[2 * t + 1][0] * sum[0], s[2 * t + 1][1] * sum[0]),
+        pack_bf16(s[2 * t + 1][2] * sum[1], s[2 * t + 1][3] * sum[1])};
+    unsigned vb[KD][4];
+#pragma unroll
+    for (int jd = 0; jd < KD; ++jd) ldmatrix_x4_trans(vb[jd], vp + t * 16 * LD + jd * 16);
+#pragma unroll
+    for (int jd = 0; jd < KD; ++jd) {
+      mma_bf16(acc[2 * jd], pa, vb[jd][0], vb[jd][1]);
+      mma_bf16(acc[2 * jd + 1], pa, vb[jd][2], vb[jd][3]);
+    }
+  }
+
+  // ---- out: through the warp's staging tile, 16-byte stores of the rows
+  // below Sq to o[b, row0 + r, h, :] ([B, Sq, H, D]) ----
+  const int r = lane >> 2;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    store2(ostg + r * LD + 8 * j + c0, acc[j][0], acc[j][1]);
+    store2(ostg + (r + 8) * LD + 8 * j + c0, acc[j][2], acc[j][3]);
+  }
+  __syncwarp();
+  const int rows = g.Sq - row0 < 16 ? g.Sq - row0 : 16;
+  const long long orow = (long long)g.H * D;
+  bf16* ob = o + ((long long)b * g.Sq + row0) * orow + (long long)h * D;
+  constexpr int kVecs = D / 8;                 // 16-byte pieces of a row
+  for (int e = lane; e < rows * kVecs; e += 32) {
+    const int rr = e / kVecs, c = (e - rr * kVecs) * 8;
+    *reinterpret_cast<uint4*>(ob + rr * orow + c) =
+        *reinterpret_cast<const uint4*>(ostg + rr * LD + c);
+  }
+  __syncwarp();                    // the staging tile is free for the next
+}
+
+// Persistent: block i takes heads i, i + gridDim.x, ... in order; the
+// block's n-th head lands in stage n % stages, and consumer warp n % 4
+// takes it. Warp 4's first thread issues the loads.
+// One block per SM (the grid is at most the SM count): __launch_bounds__'s
+// second argument keeps ptxas from capping registers for occupancy, which
+// spilled the D >= 112 single-key-tile instantiations at 64 registers.
+template <int D, int NK>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_short(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                bf16* __restrict__ o, Geo g) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // tensor-map loads land 128-byte aligned; every stage and box keeps it
+  unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);     // the head landed
+  uint64_t* empty = full + kMaxStages;                    // its warp is done
+  unsigned char* stages = smem + 128;
+  const unsigned stage_bytes = g.q_bytes + 2 * g.kv_bytes;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // ---------------- producer: one thread, the ring's loads ----------------
+    if (threadIdx.x == kWarps * 32) {
+      int n = 0;
+      for (int item = blockIdx.x; item < g.items; item += gridDim.x, ++n) {
+        const int st = n % g.stages;
+        const unsigned ph = (n / g.stages) & 1;
+        const int b = item / g.H, h = item - b * g.H;
+        unsigned char* buf = stages + st * stage_bytes;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], stage_bytes);
+        tma_load_4d(buf, &qmap, 0, 0, h, b, &full[st]);
+        tma_load_4d(buf + g.q_bytes, &kmap, 0, 0, h, b, &full[st]);
+        tma_load_4d(buf + g.q_bytes + g.kv_bytes, &vmap, 0, 0, h, b, &full[st]);
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers: warp w takes the block's heads w, w + 4, ...
+  constexpr int LD = D + 8;
+  bf16* ostg = reinterpret_cast<bf16*>(stages + g.stages * stage_bytes) + warp * 16 * LD;
+  const int nqt = (g.Sq + 15) >> 4;
+  int n = warp;
+  for (int item = blockIdx.x + warp * gridDim.x; item < g.items;
+       item += kWarps * gridDim.x, n += kWarps) {
+    const int st = n % g.stages;
+    const unsigned ph = (n / g.stages) & 1;
+    const int b = item / g.H, h = item - b * g.H;
+    const unsigned char* buf = stages + st * stage_bytes;
+    const bf16* qs = reinterpret_cast<const bf16*>(buf);
+    const bf16* ks = reinterpret_cast<const bf16*>(buf + g.q_bytes);
+    const bf16* vs = reinterpret_cast<const bf16*>(buf + g.q_bytes + g.kv_bytes);
+    mbar_wait(&full[st], ph);
+    for (int qt = 0; qt < nqt; ++qt)
+      tile<D, NK>(qs + qt * 16 * LD, ks, vs, ostg, o, b, h, qt * 16, g);
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+  }
+}
+
+// A bf16 map over the heads of a [B, H, S, D] view (element strides of s,
+// h and b; D contiguous) with no swizzle: boxes of D + 8 columns by
+// box_rows rows, so rows land D + 8 elements apart in shared memory; the
+// columns past D and the rows past S read as zeros. Returns false if
+// cuTensorMapEncodeTiled refuses it.
+inline bool make_padded_map(CUtensorMap* map, const void* p, int B, int H, int S,
+                            int D, long long s_stride, long long h_stride,
+                            long long b_stride, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_stride * 2, (cuuint64_t)h_stride * 2,
+                                 (cuuint64_t)b_stride * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)D + 8, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int NK>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           bf16* o, const Geo& g, int grid, size_t smem, cudaStream_t st) {
+  // once per instantiation: the largest shared memory any launch asks for
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_short<D, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  attention_short<D, NK><<<grid, kThreads, smem, st>>>(qm, km, vm, o, g);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+             bf16* o, const Geo& g, int grid, size_t smem, cudaStream_t st) {
+  switch ((g.Sk + 15) / 16) {
+    case 1: return launch<D, 1>(qm, km, vm, o, g, grid, smem, st);
+    case 2: return launch<D, 2>(qm, km, vm, o, g, grid, smem, st);
+    case 3: return launch<D, 3>(qm, km, vm, o, g, grid, smem, st);
+    case 4: return launch<D, 4>(qm, km, vm, o, g, grid, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace shortkv
+
 // =================================================================== fp32
 
 constexpr int kWarps32 = 8;
@@ -758,6 +1067,54 @@ extern "C" int attention_forward_tma(const void* q, const void* k, const void* v
     case 224: return tma::launch<224>(qm, km, vm, om, g, st);
     case 240: return tma::launch<240>(qm, km, vm, om, g, st);
     case 256: return tma::launch<256>(qm, km, vm, om, g, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The short-row bf16 route (persistent TMA ring + mma.sync): 1 <= Sq, Sk
+// <= 64, D a multiple of 16 up to 128, every base address and stride of q,
+// k and v a multiple of 16 bytes (checked by the Python wrapper, which
+// routes). Arguments as attention_forward's; dtype must be 1.
+extern "C" int attention_forward_short(const void* q, const void* k, const void* v,
+                                       void* o, int B, int H, int Sq, int Sk, int D,
+                                       long long q0, long long q1, long long q2,
+                                       long long k0, long long k1, long long k2,
+                                       long long v0, long long v1, long long v2,
+                                       int dtype, void* stream) {
+  if (dtype != 1 || B < 1 || H < 1 || Sq < 1 || Sq > shortkv::kMaxS || Sk < 1 ||
+      Sk > shortkv::kMaxS || D < 16 || D > kMaxD || D % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Rq = round16(Sq), Rk = round16(Sk);
+  CUtensorMap qm, km, vm;
+  if (!shortkv::make_padded_map(&qm, q, B, H, Sq, D, q2, q1, q0, Rq) ||
+      !shortkv::make_padded_map(&km, k, B, H, Sk, D, k2, k1, k0, Rk) ||
+      !shortkv::make_padded_map(&vm, v, B, H, Sk, D, v2, v1, v0, Rk))
+    return (int)cudaErrorInvalidValue;
+  const unsigned row_bytes = (unsigned)(D + 8) * 2;
+  shortkv::Geo g{B * H, H, Sq, Sk, 1, Rq * row_bytes, Rk * row_bytes,
+                 1.4426950408889634f / sqrtf((float)D)};
+  const unsigned stage_bytes = g.q_bytes + 2 * g.kv_bytes;
+  const int grid = g.items < num_sms() ? g.items : num_sms();
+  // as many stages as fit, up to 8, and no more than a block has heads
+  const int per_block = (g.items + grid - 1) / grid;
+  const size_t room = kMaxSmem - shortkv::smem_bytes(0, stage_bytes, D);
+  int stages = (int)(room / stage_bytes);
+  stages = stages < shortkv::kMaxStages ? stages : shortkv::kMaxStages;
+  stages = stages < per_block ? stages : per_block;
+  if (stages < 1) return (int)cudaErrorInvalidValue;
+  g.stages = stages;
+  const size_t smem = shortkv::smem_bytes(stages, stage_bytes, D);
+  bf16* oo = static_cast<bf16*>(o);
+  switch (D) {
+    case 16: return shortkv::launch_d<16>(qm, km, vm, oo, g, grid, smem, st);
+    case 32: return shortkv::launch_d<32>(qm, km, vm, oo, g, grid, smem, st);
+    case 48: return shortkv::launch_d<48>(qm, km, vm, oo, g, grid, smem, st);
+    case 64: return shortkv::launch_d<64>(qm, km, vm, oo, g, grid, smem, st);
+    case 80: return shortkv::launch_d<80>(qm, km, vm, oo, g, grid, smem, st);
+    case 96: return shortkv::launch_d<96>(qm, km, vm, oo, g, grid, smem, st);
+    case 112: return shortkv::launch_d<112>(qm, km, vm, oo, g, grid, smem, st);
+    case 128: return shortkv::launch_d<128>(qm, km, vm, oo, g, grid, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,8 +18,24 @@ failed build or launch.
   in registers, TMA loads and stores, ``wgmma`` for both products,
   persistent blocks. The ViT (S=197) and RoBERTa (S=213) self-attentions
   take it, their head views included.
-- ``"mma_sync"`` (``attention_forward``, bf16): every other bf16 call, as
-  the SGA blocks' (Sq=16, D=96): ``mma.sync`` tiles of 16 query rows.
+- ``"short_kv"`` (``attention_forward_short``): bf16, 1 <= Sq, Sk <= 64, D
+  a multiple of 16, the same readable strides, outside the ``"wgmma"``
+  domain. Every SGA call takes it (Sq=16, Sk=16 or 64, D=96, H=8, or 4 on
+  a tp=2 rank), contiguous or as head views. It replaces the
+  ``"mma_sync"`` route there: that route's one-warp blocks waited for
+  their head's K and V before any product and took two passes over the
+  keys. This one is bound by bytes and latency, so persistent blocks (one
+  per SM) keep a ring of heads loading by TMA while 4 warps compute; the
+  scores of 16 query rows over at most 64 keys stay in registers, so the
+  softmax takes one pass, P normalised in fp32 before its rounding to
+  bf16, as the reference rounds it. The maps have no swizzle and boxes 8
+  columns wider than D, so the rows land padded in shared memory (no
+  swizzle mode covers a 192-byte row). The products are ``mma.sync``:
+  ``wgmma``'s 64 rows would be three quarters padding at Sq=16.
+- ``"mma_sync"`` (``attention_forward``, bf16): every other bf16 call
+  (more than 64 keys outside the ``"wgmma"`` domain, D not a multiple of
+  16, strides a tensor map cannot read): ``mma.sync`` tiles of 16 query
+  rows, two passes over the keys.
 - ``"fp32"`` (``attention_forward``, float32): the check path, on CUDA
   cores.
 
@@ -45,9 +61,10 @@ The backward (``attention_backward``, the counterpart of ``_fas_bwd`` at
   contiguous first, and ``bwd_grad_copies`` counts those copies. dQ, dK and
   dV come back as [B, H, S, D] views of contiguous [B, S, H, D] tensors.
 - ``"plain"``: the VJP of ``attention_reference``, recomputed from q, k
-  and v. Every other CUDA call takes it: the SGA (D=96, whose VJP runs only
-  at dropout 0, since production SGA dropout takes the plain path both
-  ways) and the fp32 check path.
+  and v. Every other CUDA call takes it: the ``"short_kv"`` and
+  ``"mma_sync"`` routes' calls, the SGA's among them (D=96, whose VJP runs
+  only at dropout 0, since production SGA dropout takes the plain path
+  both ways), and the fp32 check path.
 
 ``bwd_route_launches`` counts the CUDA backward passes by route; CPU
 tensors take the plain VJP and count nothing.
@@ -64,7 +81,7 @@ import torch
 from . import kernel_build
 
 launches = 0
-route_launches = {"wgmma": 0, "mma_sync": 0, "fp32": 0}
+route_launches = {"wgmma": 0, "short_kv": 0, "mma_sync": 0, "fp32": 0}
 bwd_route_launches = {"wgmma": 0, "plain": 0}
 bwd_grad_copies = 0
 
@@ -75,8 +92,10 @@ _MAX_SMEM = 232448          # H100: dynamic shared memory one block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_D = 64                 # the wgmma route: one 128-byte swizzled row
 _TMA_MIN_S, _TMA_MAX_S = 64, 256
-_SYMBOLS = {"wgmma": "attention_forward_tma", "mma_sync": "attention_forward",
-            "fp32": "attention_forward"}
+_SHORT_MAX_S = 64           # the short_kv route: four 16-row tiles at most
+_SYMBOLS = {"wgmma": "attention_forward_tma",
+            "short_kv": "attention_forward_short",
+            "mma_sync": "attention_forward", "fp32": "attention_forward"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
 _BWD_SYMBOL = "attention_backward_tma"
@@ -164,31 +183,41 @@ def _tma_readable(t: torch.Tensor) -> bool:
 
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes a call ``_check`` accepts, by geometry alone:
-    ``"wgmma"``, ``"mma_sync"`` or ``"fp32"`` (see the module docstring)."""
+    ``"wgmma"``, ``"short_kv"``, ``"mma_sync"`` or ``"fp32"`` (see the
+    module docstring)."""
     if q.dtype == torch.float32:
         return "fp32"
     Sq, Sk, D = q.shape[2], k.shape[2], q.shape[3]
+    if not all(_tma_readable(t) for t in (q, k, v)):
+        return "mma_sync"
     if (D == _TMA_D and _TMA_MIN_S <= Sq <= _TMA_MAX_S
-            and _TMA_MIN_S <= Sk <= _TMA_MAX_S
-            and all(_tma_readable(t) for t in (q, k, v))):
+            and _TMA_MIN_S <= Sk <= _TMA_MAX_S):
         return "wgmma"
+    if 1 <= Sq <= _SHORT_MAX_S and Sk <= _SHORT_MAX_S and D % 16 == 0:
+        return "short_kv"
     return "mma_sync"
+
+
+def _forced_route(q, k, v, route: Optional[str]) -> str:
+    """``route`` where the geometry admits it, else ``_route``'s choice when
+    ``route`` is None; raises otherwise. ``"mma_sync"`` takes any bf16
+    call, so that a check or a timing can hold the other bf16 routes
+    against it."""
+    chosen = _route(q, k, v)
+    if route is not None and route != chosen and not (
+            route == "mma_sync" and chosen in ("wgmma", "short_kv")):
+        raise ValueError(f"route {route!r} does not take this call "
+                         f"(dtype {q.dtype}, q {tuple(q.shape)}, strides "
+                         f"{q.stride()}); its route is {chosen!r}")
+    return route or chosen
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             route: Optional[str] = None) -> torch.Tensor:
-    """Launch the kernel of ``_route(q, k, v)``. ``route`` forces one the
-    geometry admits: ``"mma_sync"`` for any bf16 call, so that a check or a
-    timing can hold the two bf16 routes against each other; the main path
-    never passes it."""
+    """Launch the kernel of ``_route(q, k, v)``, or the one ``route`` forces
+    (``_forced_route``; the main path never passes it)."""
     global launches
-    chosen = _route(q, k, v)
-    if route is not None and route != chosen and not (
-            route == "mma_sync" and chosen == "wgmma"):
-        raise ValueError(f"route {route!r} does not take this call "
-                         f"(dtype {q.dtype}, q {tuple(q.shape)}, strides "
-                         f"{q.stride()}); its route is {chosen!r}")
-    route = route or chosen
+    route = _forced_route(q, k, v, route)
     fn = kernel_build.function("attention", _SYMBOLS[route], _ARGTYPES)
     B, H, Sq, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

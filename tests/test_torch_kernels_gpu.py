@@ -27,6 +27,7 @@ from t5_resnet_vqa_torch.models.resnet_vqa import init_weights
 from t5_resnet_vqa_torch.ops import AttentionConfig
 from t5_resnet_vqa_torch.ops import attention as A
 from t5_resnet_vqa_torch.ops import bottleneck as K
+from t5_resnet_vqa_torch.ops import kernel_build
 
 pytestmark = pytest.mark.gpu
 
@@ -196,6 +197,71 @@ def test_attention_forced_route_refuses_what_it_does_not_take(cuda):
     q, k, v = _bf16_inputs(cuda, 2, 4, 197, 197, 64, True, seed=13)
     with pytest.raises(ValueError):
         A._launch(q, k, v, route="fp32")
+
+
+# the short_kv route: the SGA's four cases (B=64; H=8, and a tp=2 rank's
+# H=4; Sk=16 and 64; D=96), then the edges of its domain (1 <= Sq, Sk <= 64,
+# D a multiple of 16 up to 128: ragged key and query tiles, the smallest and
+# largest D) and batches that wrap each block's ring of stages several
+# times (4096 and 2048 heads over at most 132 blocks)
+SGA_SHAPES = [(64, 8, 16, 16), (64, 8, 16, 64), (64, 4, 16, 16),
+              (64, 4, 16, 64)]
+SHORT_KV_EDGES = ([(2, 3, 16, sk, 96) for sk in (1, 15, 17, 63, 64)]
+                  + [(2, 3, sq, 64, 96) for sq in (1, 17, 64)]
+                  + [(2, 3, 16, 64, 16), (2, 3, 16, 64, 128),
+                     (2, 3, 64, 64, 128), (2, 3, 17, 15, 16),
+                     (512, 8, 16, 64, 96), (256, 8, 64, 64, 128)])
+
+
+def _check_short_kv(cuda, B, H, Sq, Sk, D, views, seed):
+    """The short_kv route against the plain version, one launch counted on
+    it; then the forced mma_sync route on the same inputs."""
+    q, k, v = _bf16_inputs(cuda, B, H, Sq, Sk, D, views, seed)
+    assert A._route(q, k, v) == "short_kv"
+    before = dict(A.route_launches)
+    got = A.fused_attention(q, k, v)
+    want = A.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in A.route_launches.items()} == {
+        "wgmma": 0, "short_kv": 1, "mma_sync": 0, "fp32": 0}
+    assert got.shape == (B, H, Sq, D) and got.transpose(1, 2).is_contiguous()
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) <= ATT_TOL["bf16"]
+    old = A._launch(q, k, v, route="mma_sync")
+    torch.cuda.synchronize()
+    assert A.route_launches["mma_sync"] == before["mma_sync"] + 1
+    assert A.route_launches["short_kv"] == before["short_kv"] + 1
+    assert _rel_err(old, want) <= ATT_TOL["bf16"]
+
+
+@pytest.mark.parametrize("views", [False, True],
+                         ids=["contiguous", "head_views"])
+@pytest.mark.parametrize("B,H,Sq,Sk", SGA_SHAPES)
+def test_attention_short_kv_route_matches_plain(cuda, views, B, H, Sq, Sk):
+    _check_short_kv(cuda, B, H, Sq, Sk, 96, views, seed=30)
+
+
+@pytest.mark.parametrize("views", [False, True],
+                         ids=["contiguous", "head_views"])
+@pytest.mark.parametrize("B,H,Sq,Sk,D", SHORT_KV_EDGES)
+def test_attention_short_kv_route_edges(cuda, views, B, H, Sq, Sk, D):
+    _check_short_kv(cuda, B, H, Sq, Sk, D, views, seed=Sq * 131 + Sk + D)
+
+
+def test_attention_short_kv_entry_refuses_what_it_does_not_take(cuda):
+    """The C entry point refuses a geometry past its kernel (65 keys, D=72,
+    fp32) with a CUDA error code, launching nothing."""
+    fn = kernel_build.function("attention", A._SYMBOLS["short_kv"],
+                               A._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    for Sq, Sk, D, dtype in ((16, 65, 96, 1), (65, 16, 96, 1),
+                             (16, 16, 72, 1), (16, 16, 96, 0)):
+        q, k, v = _bf16_inputs(cuda, 2, 3, Sq, Sk, D, False, seed=31)
+        out = torch.empty(2, Sq, 3, D, device=cuda, dtype=torch.bfloat16)
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    2, 3, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
+                    *v.stride()[:3], dtype, stream)
+        assert status != 0, (Sq, Sk, D, dtype)
 
 
 # kernel 1's backward (csrc/attention_bwd.cu) where the forward takes the
