@@ -7,23 +7,24 @@ one on one NVIDIA GPU (Hopper, sm_90a).
 Each variant is ``t5_resnet_vqa_torch/csrc/bottleneck.cu`` (with
 ``sm90_common.cuh``) changed by the text substitutions listed for it in
 ``VARIANTS``, each of which must match the shipped source exactly once.
-Every variant is built with ``nvcc -Xptxas -v`` (all at once) into the
-package's git-ignored ``_build/ablate/``; one JSON line per variant gives
-ptxas's registers, spills and serialization warnings per instantiation.
-Then, at the four block shapes of the ResNet-50 stages 0-1 path (bf16,
-B=64), each variant runs on the same packed operands as the shipped
-kernel, in turns (shipped, variant, variant, shipped): one JSON line per
-variant and shape with both mean times (CUDA events over 50 launches
-after a warm-up) and the variant's error against the plain version
-relative to max|plain| (variants may trade speed for nothing else). The
-card's name and power limit come first, as ``nvidia-smi`` gives them.
-Without a CUDA device it exits with an error.
+Every variant is built with ``nvcc -Xptxas -v`` (all at once, by
+``kernel_build.build_variants``) into the package's git-ignored
+``_build/ablate/``; one JSON line per variant gives ptxas's registers,
+spills and serialization warnings per instantiation. A name that is not in
+``VARIANTS`` is an error. Then, at the four block shapes of the ResNet-50
+stages 0-1 path (bf16, B=64), each variant runs on the same packed
+operands as the shipped kernel, in turns (shipped, variant, variant,
+shipped): one JSON line per variant and shape with both mean times (CUDA
+events over 50 launches after a warm-up, ``chip_smoke.cuda_ms``) and the
+variant's error against the plain version relative to max|plain|
+(variants may trade speed for nothing else). The card's name and power
+limit come first, as ``nvidia-smi`` gives them. Without a CUDA device it
+exits with an error.
 """
 
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -186,45 +187,6 @@ VARIANTS = {
 }
 
 
-def make_source(name: str) -> str:
-    """The variant's sources under _build/ablate/<name>/; returns its dir."""
-    d = os.path.join(OUT, name)
-    os.makedirs(d, exist_ok=True)
-    files = {f: open(os.path.join(CSRC, f)).read()
-             for f in ("bottleneck.cu", "sm90_common.cuh")}
-    for fname, old, new in VARIANTS.get(name, []):
-        n = files[fname].count(old)
-        if n != 1:
-            raise ValueError(f"{name}: {old[:60]!r} matches {n} times in {fname}")
-        files[fname] = files[fname].replace(old, new)
-    for fname, text in files.items():
-        with open(os.path.join(d, fname), "w") as f:
-            f.write(text)
-    return d
-
-
-def build(names):
-    """nvcc -Xptxas -v of every variant at once: {name: (library, log)}."""
-    sys.path.insert(0, REPO)
-    from t5_resnet_vqa_torch.ops import kernel_build
-
-    procs = {}
-    for name in names:
-        d = make_source(name)
-        lib = os.path.join(d, "bottleneck.so")
-        procs[name] = (lib, subprocess.Popen(
-            [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-Xptxas", "-v",
-             "-o", lib, os.path.join(d, "bottleneck.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    out = {}
-    for name, (lib, proc) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        out[name] = (lib, log)
-    return out
-
-
 def main() -> int:
     import torch
 
@@ -232,16 +194,21 @@ def main() -> int:
         print("ablate_bottleneck: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from chip_smoke import ptxas_report, rel_err
+    from chip_smoke import card_line, cuda_ms, ptxas_report, rel_err
     from t5_resnet_vqa_torch.models.resnet import Bottleneck
     from t5_resnet_vqa_torch.models.resnet_vqa import init_weights
     from t5_resnet_vqa_torch.ops import bottleneck as K
+    from t5_resnet_vqa_torch.ops import kernel_build
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
     names = sys.argv[1:] or list(VARIANTS)
-    built = build(["shipped", *names])
+    unknown = [n for n in names if n not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"ablate_bottleneck: no variant {unknown}; the "
+                         f"variants are {list(VARIANTS)}")
+    print(card_line(), flush=True)
+    built = kernel_build.build_variants(
+        "bottleneck", {"shipped": (CSRC, []),
+                       **{n: (CSRC, VARIANTS[n]) for n in names}}, OUT)
     fns = {}
     for name, (lib, log) in built.items():
         fn = getattr(ctypes.CDLL(lib), "bottleneck_forward")
@@ -268,17 +235,7 @@ def main() -> int:
         return out
 
     def ms(fn):
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / ITERS
+        return cuda_ms(torch, fn, ITERS, warmup=5)
 
     with torch.inference_mode():
         for case, H, cin, width, stride, ds in CASES:

@@ -21,7 +21,13 @@ Phases (each raises on failure; nothing is caught):
               gives ptxas's registers, spills and serialization warnings of
               every bf16 bottleneck instantiation (``bottleneck_ptxas``)
               and of every short_kv attention instantiation
-              (``attention_short_ptxas``, by D and key tiles).
+              (``attention_short_ptxas``, by D and key tiles), and of the
+              attention backward kernel's and the wgmma forward's by N
+              (``attention_bwd_ptxas``, ``attention_tma_ptxas``). On
+              the wgmma route the forward that also writes the row
+              statistics, as a training step runs it, is timed in turns
+              with the serving forward on head views (``stats_fwd_ms``,
+              ``no_stats_fwd_ms``).
               Attention is also checked and timed on the head views of
               [B, S, H*D] projections, as the main path hands them over
               (``ms_head_views``); the bottleneck takes the operands its
@@ -33,15 +39,20 @@ Phases (each raises on failure; nothing is caught):
               wgmma route, the plain version's VJP elsewhere) is held
               against autograd of the plain version on head views, with
               the gradient as the main path hands it back, one pass
-              counted on its route, at every case; it is timed
-              (``bwd_ms``) in turns with the plain VJP on the kernel's
-              route (plain, kernel, kernel, plain: ``plain_vjp_ms``),
-              beside the plain version's own backward (``plain_bwd_ms``),
-              SDPA's backward on the same views (``library_bwd_ms``) and
-              its bound (``bwd_bound_ms``: q, k, v and the gradient read
-              once, dq, dk and dv written once, 5 products); at the ViT
-              shape (``vit_bwd_ms``) and the RoBERTa shape
-              (``cross_bwd_ms``) among them.
+              counted on its route, at every case (on the kernel's route
+              called without the forward's row statistics, so that it
+              computes them, counted, and then with them, to the same
+              bits); it is timed (``bwd_ms``, given the forward's
+              statistics, as the main path gives them) in turns with the
+              plain VJP on the kernel's route (plain, kernel, kernel,
+              plain: ``plain_vjp_ms``), beside the plain version's own
+              backward (``plain_bwd_ms``), SDPA's backward on the same
+              views (``library_bwd_ms``; ``bwd_vs_library`` is
+              ``bwd_ms / library_bwd_ms``) and its bound
+              (``bwd_bound_ms``: q, k, v and the gradient read once, dq,
+              dk and dv written once, 5 products); at the ViT shape
+              (``vit_bwd_ms``) and the RoBERTa shape (``cross_bwd_ms``)
+              among them.
 3. serve   -- the port's main path at full width: ResNet-50 + T5-base
               (12 layers, d_model 768) + 3 SGA blocks (H=8, D=96), 170
               answers, bf16, random weights from a seeded generator, behind
@@ -273,8 +284,14 @@ tp=2 rank's ViT forward through ``wgmma``. The train timing lines check
 the backward passes by route (``attention_bwd_routes``): 12 through the
 backward kernel and none through the plain VJP per fine-tuned ViT step
 and per cross-attention step, 6 through the plain VJP per CNN step at
-dropout 0 (the SGA), none elsewhere; each line also gives the step's peak
-device memory (``step_peak_mib``).
+dropout 0 (the SGA), none elsewhere; and the forwards that wrote row
+statistics for them (``attention_stats``: 12 per fine-tuned ViT and
+cross-attention step, none elsewhere) and the backward passes that
+recomputed them (``attention_bwd_stats_recomputed``: none, on every
+path; over the cross-attention epoch too). The serving phases write no
+statistics (``serve_stats_launches`` in the kernels line: 0). Each train
+timing line also gives the step's peak device memory
+(``step_peak_mib``).
 
 Prints one JSON line per phase, then the card's name and power limit as
 nvidia-smi reports them, then the kernels line, and last
@@ -317,9 +334,12 @@ D=96, Sq=16); ``route_launches``, ``vit_route_launches``,
 ``mesh_vit_route_launches_per_forward_per_rank`` split the attention
 launches of those runs by route. The ``attention_backward`` entry is the
 backward kernel per launch at the RoBERTa shape (``ms`` against the plain
-VJP's ``plain_ms`` in the same turns, SDPA's backward as ``library_ms``),
-its ``launches`` the count over the cross-attention train epoch, set to 0
-just before it; ``vit_*`` and ``tp2_*`` give the other shapes, and the
+VJP's ``plain_ms`` in the same turns, SDPA's backward as ``library_ms``,
+and ``stats_fwd_ms``, the forward a training step runs, which writes the
+row statistics the kernel reads, beside the serving forward's
+``no_stats_fwd_ms`` in the same turns), its ``launches`` the count over
+the cross-attention train epoch, set to 0 just before it; ``vit_*`` and
+``tp2_*`` give the other shapes, and the
 ``*_launches_per_step`` keys the passes by route per step of each train
 path. Bounds are the larger of bytes over 3.35
 TB/s and FLOPs over the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s fp32),
@@ -421,6 +441,15 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds per call of ``fn`` on the current stream."""
     for _ in range(warmup):
@@ -509,7 +538,11 @@ def phase_build(torch, card):
           "bottleneck_ptxas": ptxas_report(logs.get("bottleneck", ""),
                                            "bottleneck_bf16"),
           "attention_short_ptxas": ptxas_report(logs.get("attention", ""),
-                                                "attention_short")})
+                                                "attention_short"),
+          "attention_tma_ptxas": ptxas_report(logs.get("attention", ""),
+                                              "attention_tma"),
+          "attention_bwd_ptxas": ptxas_report(logs.get("attention_bwd", ""),
+                                              "attention_bwd_tma")})
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
@@ -615,6 +648,16 @@ def phase_attention(torch):
                 ms = (turns[1] + turns[2]) / 2
                 older.update({"mma_sync_ms": (turns[0] + turns[3]) / 2,
                               "turns_ms": turns})
+            if route == "wgmma":
+                # the forward a training step runs, which also writes the
+                # row statistics, in turns with the serving one (without,
+                # with, with, without) on the main path's head views
+                fwds = (lambda: A._launch(qv, kv, vv),
+                        lambda: A._launch(qv, kv, vv, stats=True))
+                turns = [device_ms(torch, fwds[i]) for i in (0, 1, 1, 0)]
+                older.update({"stats_fwd_ms": (turns[1] + turns[2]) / 2,
+                              "no_stats_fwd_ms": (turns[0] + turns[3]) / 2,
+                              "stats_fwd_turns_ms": turns})
             else:
                 ms = device_ms(torch, lambda: A.fused_attention(q, k, v))
             views_ms = device_ms(torch, lambda: A.fused_attention(qv, kv, vv))
@@ -789,6 +832,19 @@ def check_bwd_routes(what: str, got: dict, want: dict) -> None:
                              f"{got}, expected {want}")
 
 
+def check_stats(what: str, got: dict, forwards: int) -> None:
+    """``forwards`` forwards wrote row statistics, and no backward pass
+    recomputed them (``got``: a run's ``attention_stats`` and
+    ``attention_bwd_stats_recomputed``)."""
+    if (got["attention_stats"], got["attention_bwd_stats_recomputed"]) != (
+            forwards, 0):
+        raise AssertionError(
+            f"{what}: {got['attention_stats']} forwards wrote row "
+            f"statistics (expected {forwards}), "
+            f"{got['attention_bwd_stats_recomputed']} backward passes "
+            f"recomputed them (expected 0)")
+
+
 def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
     """Kernel 1's backward on the head views of [B, S, H*D] projections,
     with the output's gradient as the main path hands it back (the
@@ -817,10 +873,25 @@ def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
                                            retain_graph=True)
 
     before = dict(A.bwd_route_launches)
+    recomputed = A.bwd_stats_recomputed
     got = A.attention_backward(q, k, v, grad_out)
     torch.cuda.synchronize()
     check_bwd_routes(f"attention backward {name} {dtype_name}",
                      bwd_routes_since(A, before), {route: 1})
+    stats = None
+    if route == "wgmma":
+        # without statistics it computed them (counted); with the forward's
+        # it gives the same gradients, to the bit
+        if A.bwd_stats_recomputed != recomputed + 1:
+            raise AssertionError(f"attention backward {name}: row "
+                                 f"statistics not recomputed once")
+        _, stats = A._launch(q, k, v, stats=True)
+        for a, b in zip(A.attention_backward(q, k, v, grad_out, stats=stats),
+                        got):
+            if not torch.equal(a, b):
+                raise AssertionError(f"attention backward {name}: the "
+                                     f"forward's statistics give other "
+                                     f"gradients than recomputed ones")
     plain_bwd = graph(A.attention_reference)
     abs_err = rel = 0.0
     for grad, want in zip(got, plain_bwd()):
@@ -835,7 +906,7 @@ def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
     if route == "wgmma":
         fns = (lambda: A.attention_backward(q, k, v, grad_out,
                                             route="plain"),
-               lambda: A.attention_backward(q, k, v, grad_out))
+               lambda: A.attention_backward(q, k, v, grad_out, stats=stats))
         turns = [device_ms(torch, fns[i]) for i in (0, 1, 1, 0)]
         out.update({"bwd_ms": (turns[1] + turns[2]) / 2,
                     "plain_vjp_ms": (turns[0] + turns[3]) / 2,
@@ -851,7 +922,8 @@ def attention_backward(torch, A, B, H, Sq, Sk, D, dtype, dtype_name, name):
                                  dtype_name)
     out.update({"bwd_bound_ms": max(t_bytes, t_ops),
                 "bwd_bound_by": bound_by(t_bytes, t_ops),
-                "bwd_bound_share": max(t_bytes, t_ops) / out["bwd_ms"]})
+                "bwd_bound_share": max(t_bytes, t_ops) / out["bwd_ms"],
+                "bwd_vs_library": out["bwd_ms"] / out["library_bwd_ms"]})
     return out
 
 
@@ -1964,6 +2036,7 @@ def phase_train(torch, card):
                              fwd if on else {})
                 check_bwd_routes(what, got["attention_bwd_routes"],
                                  bwd if on else {})
+                check_stats(what, got, 0)
         del models
         torch.cuda.empty_cache()
     finally:
@@ -2040,14 +2113,17 @@ def phase_train_vit(torch, card):
         timing = train_timing(torch, cfg, variants, card, "train_vit_timing",
                               True, TRAIN_ROUNDS)
         # the fine-tuned tower's 12 backward passes take the kernel
-        for label, want in (("cached", ({}, {})),
-                            ("cache_off", ({"wgmma": 12}, {})),
-                            ("fine_tuned", ({"wgmma": 12}, {"wgmma": 12}))):
+        # (and their forwards wrote the row statistics the backward took)
+        for label, want in (("cached", ({}, {}, 0)),
+                            ("cache_off", ({"wgmma": 12}, {}, 0)),
+                            ("fine_tuned", ({"wgmma": 12}, {"wgmma": 12},
+                                            12))):
             got = timing[label]["launches_per_step"]
             check_routes(f"ViT {label} train step", got["attention_routes"],
                          want[0])
             check_bwd_routes(f"ViT {label} train step",
                              got["attention_bwd_routes"], want[1])
+            check_stats(f"ViT {label} train step", got, want[2])
         del variants, reloaded
         torch.cuda.empty_cache()
     finally:
@@ -2098,13 +2174,18 @@ def phase_train_family(torch, card, family):
         # the cross-attention family's 12 RoBERTa layers each take the
         # kernel's backward once per train step
         A.bwd_route_launches.update({r: 0 for r in A.bwd_route_launches})
+        A.stats_launches = A.bwd_stats_recomputed = 0
         reloaded, epoch = train_epoch(torch, cfg, build, data, expect,
                                       log_lines)
         epoch["attention_bwd_routes"] = {
             r: n for r, n in A.bwd_route_launches.items() if n}
+        epoch["attention_stats"] = A.stats_launches
+        epoch["attention_bwd_stats_recomputed"] = A.bwd_stats_recomputed
         check_bwd_routes(f"{family} epoch", epoch["attention_bwd_routes"],
                          {"wgmma": 12 * TRAIN_BATCHES}
                          if family == "cross" else {})
+        check_stats(f"{family} epoch", epoch,
+                    12 * TRAIN_BATCHES if family == "cross" else 0)
         emit({"phase": f"train_{family}_epoch", "card": card,
               "model": spec["model"], "answers": ANSWERS,
               "dtype": "bfloat16 compute, fp32 master weights",
@@ -2139,12 +2220,13 @@ def phase_train_family(torch, card, family):
         # wgmma route and the backward kernel
         for label in timing:
             got = timing[label]["launches_per_step"]
-            want = (({"wgmma": 24}, {"wgmma": 12}) if family == "cross"
-                    else ({}, {}))
+            want = (({"wgmma": 24}, {"wgmma": 12}, 12) if family == "cross"
+                    else ({}, {}, 0))
             check_routes(f"{family} {label} train step",
                          got["attention_routes"], want[0])
             check_bwd_routes(f"{family} {label} train step",
                              got["attention_bwd_routes"], want[1])
+            check_stats(f"{family} {label} train step", got, want[2])
         del variants, reloaded
         torch.cuda.empty_cache()
     finally:
@@ -2166,7 +2248,10 @@ def phase_train_family(torch, card, family):
     emit({"phase": f"train_{family}", "card": card,
           "seconds": time.perf_counter() - t_phase})
     return {"epoch": epoch["launches"], "per_step": per_step,
-            "epoch_bwd_routes": epoch["attention_bwd_routes"]}
+            "epoch_bwd_routes": epoch["attention_bwd_routes"],
+            "epoch_stats": epoch["attention_stats"],
+            "epoch_bwd_stats_recomputed":
+                epoch["attention_bwd_stats_recomputed"]}
 
 
 def _steps(torch, cfg, model, dtype, batches, total):
@@ -2333,6 +2418,7 @@ def train_timing(torch, cfg, variants, card, phase, dropout,
     for label, (model, batch) in variants.items():
         a0, k0, r0 = A.launches, K.launches, route_counts(A)
         b0 = dict(A.bwd_route_launches)
+        s0, c0 = A.stats_launches, A.bwd_stats_recomputed
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2340,7 +2426,10 @@ def train_timing(torch, cfg, variants, card, phase, dropout,
         peak = torch.cuda.max_memory_allocated()
         counts = {"attention": A.launches - a0, "bottleneck": K.launches - k0,
                   "attention_routes": routes_since(A, r0),
-                  "attention_bwd_routes": bwd_routes_since(A, b0)}
+                  "attention_bwd_routes": bwd_routes_since(A, b0),
+                  "attention_stats": A.stats_launches - s0,
+                  "attention_bwd_stats_recomputed":
+                      A.bwd_stats_recomputed - c0}
         median = float(np.median(times[label]))
         line = {"phase": phase, "config": label, "card": card,
                 "dropout": "production" if dropout else 0.0,
@@ -4195,19 +4284,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     phase_build(torch, card)
     att = phase_attention(torch)
     phase_attention_edges(torch)
     blk = phase_bottleneck(torch)
+    # serving forwards write no row statistics
+    from t5_resnet_vqa_torch.ops import attention as A
+    stats0 = A.stats_launches
     launches = phase_serve(torch, card)
     vit_launches = phase_serve_vit(torch, card)
     family_launches = {f: phase_serve_family(torch, card, f)
                        for f in FAMILIES}
+    serve_stats = A.stats_launches - stats0
+    if serve_stats:
+        raise AssertionError(f"the serving phases' forwards wrote row "
+                             f"statistics {serve_stats} times")
     train = phase_train(torch, card)
     train_vit = phase_train_vit(torch, card)
     family_train = {f: phase_train_family(torch, card, f) for f in FAMILIES}
@@ -4299,7 +4391,8 @@ def main() -> int:
                        "vit_max_abs_err": vit["max_abs_err"],
                        **{f"vit_{k}": v for k, v in vit.items()
                           if k.startswith(("bwd", "plain_bwd", "plain_vjp",
-                                           "library_bwd"))}})
+                                           "library_bwd", "stats_fwd",
+                                           "no_stats_fwd"))}})
     # kernel 1's backward: per launch at the RoBERTa shape, whose 12 layers
     # train in every cross-attention step; its launches are the count over
     # the cross-attention epoch, from 0 just before it
@@ -4318,15 +4411,28 @@ def main() -> int:
         "bound_share": cross["bwd_bound_ms"] / cross["bwd_ms"],
         "bound_by": cross["bwd_bound_by"],
         "library_ms": cross["library_bwd_ms"],
+        "bwd_vs_library": cross["bwd_vs_library"],
         "shape": [BATCH, 12, CROSS_SEQ, CROSS_SEQ, 64],
         "turns_ms": cross["bwd_turns_ms"],
         "plain_own_backward_ms": cross["plain_bwd_ms"],
+        # the training forward that writes the statistics this kernel
+        # reads, beside the serving forward in the same turns
+        "stats_fwd_ms": cross["stats_fwd_ms"],
+        "no_stats_fwd_ms": cross["no_stats_fwd_ms"],
         **{f"{case}_{k}": att[case][key]
            for case in ("vit", "tp2_vit_s197", "tp2_cross_s213")
            for k, key in (("ms", "bwd_ms"), ("plain_ms", "plain_vjp_ms"),
                           ("library_ms", "library_bwd_ms"),
                           ("bound_ms", "bwd_bound_ms"),
-                          ("max_abs_err", "bwd_max_abs_err"))},
+                          ("max_abs_err", "bwd_max_abs_err"),
+                          ("bwd_vs_library", "bwd_vs_library"),
+                          ("stats_fwd_ms", "stats_fwd_ms"),
+                          ("no_stats_fwd_ms", "no_stats_fwd_ms"))},
+        "cross_train_epoch_stats_launches": family_train["cross"]
+        ["epoch_stats"],
+        "cross_train_epoch_stats_recomputed": family_train["cross"]
+        ["epoch_bwd_stats_recomputed"],
+        "serve_stats_launches": serve_stats,
         "cross_train_launches_per_step":
             family_train["cross"]["per_step"]["attention"]
             ["bwd_routes_per_production_step"],

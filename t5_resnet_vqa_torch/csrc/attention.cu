@@ -392,6 +392,7 @@ struct Geo {
   unsigned q_bytes;         // a stage's Q box: nqt tiles
   unsigned kv_bytes;        // a stage's K box, and its V box: N rows
   float scale_log2;         // log2(e) / sqrt(D)
+  float2* stats;            // [B, H, Sq] or null: each row's (max, sum)
 };
 
 // Shared memory: 1024 bytes of alignment slack, 1024 for the barriers, the
@@ -403,8 +404,9 @@ inline size_t smem_bytes(int nqt, int N) {
 }
 
 // One 64-row query tile of a head, by one consumer warpgroup: S = Q K^T,
-// the softmax of each row, P V, and the tile out by a TMA store. qs, ks
-// and vs are the swizzled tiles in shared memory (Q and K landed, V
+// the softmax of each row, P V, and the tile out by a TMA store; where
+// g.stats is given, each row's statistics too (what the backward needs).
+// qs, ks and vs are the swizzled tiles in shared memory (Q and K landed, V
 // landing on v_bar); rows of K and V past Sk are zeros (the map's
 // out-of-bounds fill).
 template <int N>
@@ -464,8 +466,20 @@ __device__ __forceinline__ void tile(const bf16* qs, const bf16* ks, const bf16*
     for (int half = 0; half < 2; ++half) {
       sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
       sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
-      sum[half] = 1.f / sum[half];
     }
+    // the row's statistics, as this kernel formed P: its scaled max
+    // (max c) and sum (of 2^(s c - max c)), written by one thread of the
+    // quad that owns the row; the backward forms the same P from them
+    if (g.stats != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + warp * 16 + (lane >> 2) + 8 * half;
+        if (row < g.Sq)
+          g.stats[(size_t)(b * g.H + h) * g.Sq + row] = make_float2(mx[half], sum[half]);
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) sum[half] = 1.f / sum[half];
     // the accumulators of keys 16i..16i+15 are the A registers of k step i
 #pragma unroll
     for (int i = 0; i < N / 16; ++i) {
@@ -1030,13 +1044,17 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
 // The long-row bf16 route (TMA + wgmma): D = 64, 64 <= Sk <= 256,
 // 1 <= Sq <= 256, every base address and stride of q, k and v a multiple
 // of 16 bytes (checked by the Python wrapper, which routes). Arguments as
-// attention_forward's; dtype must be 1.
+// attention_forward's, then stats: null, or a contiguous fp32 [B,H,Sq,2]
+// that gets each row's statistics (the backward's): the max of its scores
+// q.k^T times log2(e) / sqrt(D), m, and the sum of 2^(s log2(e) / sqrt(D)
+// - m) over its keys, so that P = 2^(...) / sum and the row's log-sum-exp
+// is (m + log2 sum) ln 2; dtype must be 1.
 extern "C" int attention_forward_tma(const void* q, const void* k, const void* v,
                                      void* o, int B, int H, int Sq, int Sk, int D,
                                      long long q0, long long q1, long long q2,
                                      long long k0, long long k1, long long k2,
                                      long long v0, long long v1, long long v2,
-                                     int dtype, void* stream) {
+                                     int dtype, void* stream, void* stats) {
   if (dtype != 1 || D != tma::kD || Sq < 1 || Sq > tma::kMaxS || Sk < 64 ||
       Sk > tma::kMaxS)
     return (int)cudaErrorInvalidValue;
@@ -1052,7 +1070,7 @@ extern "C" int attention_forward_tma(const void* q, const void* k, const void* v
     return (int)cudaErrorInvalidValue;
   const tma::Geo g{B * H, H, Sq, Sk, nqt,
                    (unsigned)(nqt * tma::kTileBytes), (unsigned)(N * tma::kD * 2),
-                   1.4426950408889634f / sqrtf((float)D)};
+                   1.4426950408889634f / sqrtf((float)D), static_cast<float2*>(stats)};
   switch (N) {
     case 64: return tma::launch<64>(qm, km, vm, om, g, st);
     case 80: return tma::launch<80>(qm, km, vm, om, g, st);

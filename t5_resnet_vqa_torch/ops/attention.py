@@ -49,17 +49,32 @@ reshape.
 ``launches`` counts kernel launches, so a run can show that its main path
 went through the kernels, and ``route_launches`` splits them by route.
 
+Where autograd will need the gradient (grad mode on and an input that
+requires it) and the forward takes the ``"wgmma"`` route, the forward
+kernel also writes each query row's statistics, as it formed P: the max of
+the row's scores times log2(e) / sqrt(D), m, and the sum l of
+2^(s log2(e) / sqrt(D) - m) (fp32 [B, H, Sq, 2], 1.3 MB at B=64, H=12,
+S=213; ``attention_stats_reference`` is their plain version).
+``_FusedAttention`` saves them, and the backward forms P = 2^(...) / l
+from them: the forward's fp32 P, to the bit. ``stats_launches`` counts the
+forwards that wrote statistics: a serving forward (``no_grad``,
+``inference_mode``) writes none.
+
 The backward (``attention_backward``, the counterpart of ``_fas_bwd`` at
 :156 there) has two routes, picked by ``_bwd_route`` on the same geometry:
 
 - ``"wgmma"`` (``attention_backward_tma`` in ``csrc/attention_bwd.cu``):
   wherever the forward takes the ``"wgmma"`` route. dQ, dK and dV in one
-  kernel, rounded where autograd of ``attention_reference`` rounds them
-  (see the source note). The gradient is read in place when a tensor map
-  can read it, as the [B, H, Sq, D] view of a contiguous [B, Sq, H, D] that
-  the callers' head merge hands back; any other gradient is made
-  contiguous first, and ``bwd_grad_copies`` counts those copies. dQ, dK and
-  dV come back as [B, H, S, D] views of contiguous [B, S, H, D] tensors.
+  kernel from the forward's row statistics, rounded where autograd of
+  ``attention_reference`` rounds them (see the source note). The gradient
+  is read in place when a tensor map can read it, as the [B, H, Sq, D]
+  view of a contiguous [B, Sq, H, D] that the callers' head merge hands
+  back; any other gradient is made contiguous first, and ``bwd_grad_copies`` counts those copies.
+  dQ, dK and dV come back as [B, H, S, D] views of contiguous [B, S, H, D]
+  tensors. Called without statistics (``stats=None``: a check or a timing
+  of the backward alone), it has the forward kernel compute them first and
+  counts that in ``bwd_stats_recomputed``; the main path's autograd
+  backward never does.
 - ``"plain"``: the VJP of ``attention_reference``, recomputed from q, k
   and v. Every other CUDA call takes it: the ``"short_kv"`` and
   ``"mma_sync"`` routes' calls, the SGA's among them (D=96, whose VJP runs
@@ -84,6 +99,8 @@ launches = 0
 route_launches = {"wgmma": 0, "short_kv": 0, "mma_sync": 0, "fp32": 0}
 bwd_route_launches = {"wgmma": 0, "plain": 0}
 bwd_grad_copies = 0
+stats_launches = 0
+bwd_stats_recomputed = 0
 
 _MAX_SK = 256
 _MAX_D = 128
@@ -98,8 +115,10 @@ _SYMBOLS = {"wgmma": "attention_forward_tma",
             "mma_sync": "attention_forward", "fp32": "attention_forward"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
+# the wgmma route takes one more: the row statistics' buffer, or null
+_ARGTYPES_TMA = _ARGTYPES + [ctypes.c_void_p]
 _BWD_SYMBOL = "attention_backward_tma"
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -128,6 +147,19 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             att = (torch.nn.functional.dropout(att, dropout_p)
                    if dropout is None else dropout(att))
         return torch.matmul(att.float(), v.float()).to(q.dtype)
+
+
+def attention_stats_reference(q: torch.Tensor, k: torch.Tensor
+                              ) -> torch.Tensor:
+    """The row statistics the forward kernel writes for the backward, fp32
+    [B, H, Sq, 2]: m, the max of each query row's scores times
+    log2(e) / sqrt(D), and l, the sum of 2^(s log2(e) / sqrt(D) - m) over
+    its keys."""
+    with torch.autocast(q.device.type, enabled=False):
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores * (math.log2(math.e) / math.sqrt(q.shape[-1]))
+        m = scores.amax(-1)
+        return torch.stack((m, torch.exp2(scores - m[..., None]).sum(-1)), -1)
 
 
 def _smem_bytes_f32(sk: int, d: int) -> int:
@@ -213,21 +245,36 @@ def _forced_route(q, k, v, route: Optional[str]) -> str:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            route: Optional[str] = None) -> torch.Tensor:
+            route: Optional[str] = None, stats: bool = False):
     """Launch the kernel of ``_route(q, k, v)``, or the one ``route`` forces
-    (``_forced_route``; the main path never passes it)."""
-    global launches
+    (``_forced_route``; the main path never passes it). With ``stats`` (the
+    ``"wgmma"`` route only) it returns (out, stats): the rows' statistics,
+    fp32 [B, H, Sq, 2], written by the same kernel."""
+    global launches, stats_launches
     route = _forced_route(q, k, v, route)
-    fn = kernel_build.function("attention", _SYMBOLS[route], _ARGTYPES)
+    if stats and route != "wgmma":
+        raise ValueError(f"only the wgmma route writes row statistics, "
+                         f"not {route!r}")
     B, H, Sq, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, H, Sq, k.shape[2], D, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], _DTYPES[q.dtype], stream)
-    kernel_build.check(status, _SYMBOLS[route])
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, Sq, k.shape[2], D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], _DTYPES[q.dtype], stream]
+    if route == "wgmma":
+        fn = kernel_build.function("attention", _SYMBOLS[route],
+                                   _ARGTYPES_TMA)
+        row_stats = (torch.empty((B, H, Sq, 2), dtype=torch.float32,
+                                 device=q.device) if stats else None)
+        args.append(row_stats.data_ptr() if stats else None)
+    else:
+        fn = kernel_build.function("attention", _SYMBOLS[route], _ARGTYPES)
+    kernel_build.check(fn(*args), _SYMBOLS[route])
     launches += 1
     route_launches[route] += 1
+    if stats:
+        stats_launches += 1
+        return out.transpose(1, 2), row_stats
     return out.transpose(1, 2)
 
 
@@ -267,15 +314,21 @@ def _readable_grad(g: torch.Tensor) -> torch.Tensor:
     return g.clone(memory_format=torch.contiguous_format)
 
 
-def _launch_bwd(q, k, v, g):
-    """Launch the backward kernel: (dq, dk, dv) as [B, H, S, D] views of
-    contiguous [B, S, H, D] tensors."""
+def _launch_bwd(q, k, v, g, stats):
+    """Launch the backward kernel with the rows' statistics ``stats`` (fp32
+    [B, H, Sq, 2], as the forward wrote them): (dq, dk, dv) as
+    [B, H, S, D] views of contiguous [B, S, H, D] tensors."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"the gradient must match the output: got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}, "
                          f"expected {tuple(q.shape)} {q.dtype} on {q.device}")
+    if (stats.shape != (B, H, Sq, 2) or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous float32 [B, H, Sq, 2] "
+                         f"on {q.device}, got {tuple(stats.shape)} "
+                         f"{stats.dtype}")
     g = _readable_grad(g)
     fn = kernel_build.function("attention_bwd", _BWD_SYMBOL, _BWD_ARGTYPES)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -283,7 +336,8 @@ def _launch_bwd(q, k, v, g):
     dv = torch.empty((B, Sk, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, D,
+                stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, H, Sq, Sk, D,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *g.stride()[:3], _DTYPES[q.dtype], stream)
     kernel_build.check(status, _BWD_SYMBOL)
@@ -292,13 +346,18 @@ def _launch_bwd(q, k, v, g):
 
 
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       g: torch.Tensor, route: Optional[str] = None):
+                       g: torch.Tensor, route: Optional[str] = None,
+                       stats: Optional[torch.Tensor] = None):
     """(dq, dk, dv): the VJP of the attention at (q, k, v) for the output's
-    gradient ``g``. CPU tensors: the plain VJP, uncounted. CUDA tensors: the
-    route of ``_bwd_route``; ``route="plain"`` forces the plain VJP on any
-    call, so that a check or a timing can hold the two against each other
-    (the main path never passes it). No fallback: a failed build or launch
+    gradient ``g``. CPU tensors: the plain VJP, uncounted (``stats``
+    unused). CUDA tensors: the route of ``_bwd_route``; ``route="plain"``
+    forces the plain VJP on any call, so that a check or a timing can hold
+    the two against each other (the main path never passes it). The
+    kernel's route takes the forward's row statistics ``stats``; without
+    them it has the forward kernel compute them first (counted in
+    ``bwd_stats_recomputed``). No fallback: a failed build or launch
     raises."""
+    global bwd_stats_recomputed
     if q.device.type == "cpu":
         if route not in (None, "plain"):
             raise ValueError(f"CPU tensors take the plain VJP, not the "
@@ -308,18 +367,36 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _forced_bwd_route(q, k, v, route) == "plain":
         bwd_route_launches["plain"] += 1
         return _plain_vjp(q, k, v, g)
-    return _launch_bwd(q, k, v, g)
+    if stats is None:
+        _, stats = _launch(q, k, v, stats=True)
+        bwd_stats_recomputed += 1
+    return _launch_bwd(q, k, v, g, stats)
+
+
+def _saves_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The forward writes row statistics for its backward: CUDA tensors on
+    the wgmma route, with grad mode on and an input that requires the
+    gradient (not a serving forward)."""
+    return (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))
+            and _route(q, k, v) == "wgmma")
 
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _launch(q, k, v)
+    def forward(ctx, q, k, v, stats):
+        if not stats:
+            ctx.save_for_backward(q, k, v)
+            return _launch(q, k, v)
+        out, row_stats = _launch(q, k, v, stats=True)
+        ctx.save_for_backward(q, k, v, row_stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        return attention_backward(*ctx.saved_tensors, g)
+        q, k, v, *row_stats = ctx.saved_tensors
+        return (*attention_backward(q, k, v, g, stats=row_stats[0]
+                                    if row_stats else None), None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor,
@@ -335,4 +412,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"fused_attention runs on cuda or cpu, "
                          f"not {q.device}")
     _check(q, k, v)
-    return _FusedAttention.apply(q, k, v)
+    return _FusedAttention.apply(q, k, v, _saves_stats(q, k, v))

@@ -8,7 +8,9 @@ reused. ``function`` returns a library's entry point with its ctypes
 signature set once, at load time. ``build`` starts one ``nvcc`` per missing
 library, all at once, and waits for them together; asked for it, it returns
 each build's ``ptxas -v`` report (registers, spills per kernel), which
-leaves the library as it is and so is not in the hash.
+leaves the library as it is and so is not in the hash. ``build_variants``
+builds altered copies of one source side by side, for timing a kernel's
+design alternatives against it (the ``ablate_*.py`` scripts).
 
 Nothing here runs at import time: the CPU tests import every module, and a
 machine without ``nvcc`` never reaches this code (the kernel wrappers use
@@ -22,7 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -55,32 +57,70 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def _nvcc_all(jobs: Sequence[Tuple[str, str, str]], ptxas_info: bool
+              ) -> Dict[str, str]:
+    """One ``nvcc`` per ``(key, source, library)``, all at once; raises if
+    any fails. Returns the compiler's output by key."""
+    procs = [(key, subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_info else ()),
+         "-o", lib, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for key, src, lib in jobs]
+    failed, logs = [], {}
+    for key, proc in procs:
+        logs[key] = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{key}:\n{logs[key]}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
 def build(names: Sequence[str], ptxas_info: bool = False) -> Dict[str, str]:
     """Compile every named source whose library is missing, in parallel.
     Returns the compiler's output by name for the libraries it built
     (``ptxas_info``: with ``-Xptxas -v``)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = []
-    for name in names:
-        out = library_path(name)
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_info else ()),
-               "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed, logs = [], {}
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        logs[name] = log.decode(errors="replace")
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{logs[name]}")
-        else:
-            os.replace(tmp, out)     # atomic: a reader never sees half a file
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    jobs = [(name, os.path.join(CSRC_DIR, f"{name}.cu"),
+             f"{library_path(name)}.{os.getpid()}.tmp")
+            for name in names if not os.path.exists(library_path(name))]
+    logs = _nvcc_all(jobs, ptxas_info)
+    for name, _, tmp in jobs:
+        os.replace(tmp, library_path(name))   # atomic: never half a file
     return logs
+
+
+def build_variants(name: str,
+                   variants: Mapping[str, Tuple[str, Sequence[Tuple[str, str,
+                                                                    str]]]],
+                   out_dir: str) -> Dict[str, Tuple[str, str]]:
+    """Build ``<name>.cu`` once per variant, all at once with ``-Xptxas
+    -v``. ``variants`` maps a variant to the source directory it copies
+    (``<name>.cu`` and every ``*.cuh``) and the text substitutions
+    ``(file, old, new)`` made in the copy, each of which must match exactly
+    once. Sources and library go to ``out_dir/<variant>/``. Returns
+    {variant: (library, compiler output)}."""
+    jobs = []
+    for variant, (csrc, subs) in variants.items():
+        files = {}
+        for fname in os.listdir(csrc):
+            if fname == f"{name}.cu" or fname.endswith(".cuh"):
+                with open(os.path.join(csrc, fname)) as f:
+                    files[fname] = f.read()
+        for fname, old, new in subs:
+            n = files[fname].count(old)
+            if n != 1:
+                raise ValueError(f"{variant}: {old[:60]!r} matches {n} times "
+                                 f"in {fname}")
+            files[fname] = files[fname].replace(old, new)
+        d = os.path.join(out_dir, variant)
+        os.makedirs(d, exist_ok=True)
+        for fname, text in files.items():
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
+        jobs.append((variant, os.path.join(d, f"{name}.cu"),
+                     os.path.join(d, f"{name}.so")))
+    logs = _nvcc_all(jobs, ptxas_info=True)
+    return {variant: (lib, logs[variant]) for variant, _, lib in jobs}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,10 +14,20 @@ another order, so a rounding can land one bf16 ulp apart). The route the
 backward takes is held by geometry, as ``tests/test_torch_attention_route.py``
 holds the forward's. The kernel itself runs only on a card
 (``tests/test_torch_kernels_gpu.py``).
+
+The backward kernel's row statistics have plain versions here too: each
+row's (m, l), the scaled max and the sum of 2^(s c - m) that the forward
+kernel writes and the backward forms P from, as the log-sum-exp they give,
+against ``jax.nn.logsumexp`` of the scaled scores, fp32 within rtol/atol
+2e-5; and the reference's delta, sum_j P * bf16(dP) (not
+FlashAttention's rowsum(dO * O)), against numpy: fp32 within 2e-5, bf16
+within 1e-3 of max|delta| (dP is rounded to bf16 in both, from fp32 sums
+in another order, so a rounding can land one bf16 ulp apart).
 """
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -70,6 +80,96 @@ def test_plain_vjp_matches_jax_bf16(Sq, Sk, D):
         assert a.dtype == torch.bfloat16, name
         err = np.abs(a.float().numpy() - b).max() / np.abs(b).max()
         assert err <= 1e-2, f"d{name}: {err} of max|ref|"
+
+
+@pytest.mark.parametrize("Sq,Sk,D", VJP_SHAPES)
+def test_plain_stats_match_jax_logsumexp(Sq, Sk, D):
+    q, k, _, _ = _inputs(Sq, Sk, D, seed=Sq * 5 + Sk + D)
+    stats = A.attention_stats_reference(torch.from_numpy(q),
+                                        torch.from_numpy(k))
+    assert stats.dtype == torch.float32 and stats.shape == (1, 2, Sq, 2)
+    scores = jnp.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(D)
+    np.testing.assert_allclose(
+        stats[..., 0].numpy(),
+        np.asarray(scores.max(-1)) * np.log2(np.e), rtol=2e-5, atol=2e-5)
+    assert (stats[..., 1] >= 1).all()     # the max's own term is 2^0
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+    np.testing.assert_allclose(_lse(stats).numpy(), want,
+                               rtol=2e-5, atol=2e-5)
+
+
+def _lse(stats):
+    """Each row's log-sum-exp of the scaled scores (natural log) from its
+    statistics (m, l): (m + log2 l) ln 2."""
+    return (stats[..., 0] + torch.log2(stats[..., 1])) * np.log(2.0)
+
+
+def _delta_reference(q, k, v, g):
+    """The backward's other row statistic, fp32 [B, H, Sq], as autograd of
+    ``attention_reference`` forms it and the kernel's rounding contract
+    keeps it: delta = sum_j P * dP, with P the fp32 softmax and dP = g v^T
+    rounded to q's dtype (not FlashAttention's rowsum(g * out))."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.softmax(scores / np.sqrt(q.shape[-1]), dim=-1)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    return (p * dp.to(q.dtype).float()).sum(-1)
+
+
+def _numpy_delta(q, k, v, g, bf16):
+    """sum_j P * dP per row in float64, with dP rounded to bf16 where the
+    inputs are bf16."""
+    if bf16:
+        q, k, v, g = (x.astype(ml_dtypes.bfloat16).astype(np.float64)
+                      for x in (q, k, v, g))
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    dp = np.einsum("bhqd,bhkd->bhqk", g, v)
+    if bf16:
+        dp = dp.astype(np.float32).astype(ml_dtypes.bfloat16) \
+            .astype(np.float64)
+    return (p * dp).sum(-1)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("Sq,Sk,D", [(197, 197, 64), (213, 213, 64),
+                                     (64, 256, 64), (16, 64, 96)])
+def test_plain_delta_matches_numpy(Sq, Sk, D, bf16):
+    q, k, v, g = _inputs(Sq, Sk, D, seed=Sq * 13 + Sk + D)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    got = _delta_reference(*(torch.from_numpy(x).to(dtype)
+                             for x in (q, k, v, g)))
+    want = _numpy_delta(q, k, v, g, bf16)
+    assert got.dtype == torch.float32 and got.shape == (1, 2, Sq)
+    if bf16:
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err <= 1e-3, err
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_tensors_take_no_statistics():
+    """CPU tensors neither save statistics in the forward nor take them in
+    the backward: ``fused_attention`` is the plain version, and
+    ``attention_backward`` the plain VJP whatever ``stats`` it is given,
+    with every counter left alone."""
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16)
+                  for x in _inputs(213, 213, 64, seed=8))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    assert A._route(*leaves) == "wgmma"
+    assert not A._saves_stats(*leaves)
+    counters = lambda: (A.launches, A.stats_launches,
+                        A.bwd_stats_recomputed, dict(A.bwd_route_launches))
+    before = counters()
+    out = A.fused_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    want = A.attention_backward(q, k, v, g)
+    bogus = torch.full((1, 2, 213, 2), float("nan"))
+    given = A.attention_backward(q, k, v, g, stats=bogus)
+    assert counters() == before
+    for a, b, c in zip(got, want, given):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(c, b, rtol=0, atol=0)
 
 
 # every call site of PERF.md's kernel table: B, H, Sq, Sk, D and the route of
@@ -190,7 +290,8 @@ def test_cpu_backward_launches_nothing():
                   for x in _inputs(197, 197, 64, seed=3))
     assert A._bwd_route(q, k, v) == "wgmma"
     counters = lambda: (A.launches, dict(A.route_launches),
-                        dict(A.bwd_route_launches), A.bwd_grad_copies)
+                        dict(A.bwd_route_launches), A.bwd_grad_copies,
+                        A.stats_launches, A.bwd_stats_recomputed)
     before = counters()
     A.attention_backward(q, k, v, g)
     ctx = type("Ctx", (), {"saved_tensors": (q, k, v)})()

@@ -15,8 +15,14 @@ t1 and t2 are rounded to bf16 between the products, and an ulp apart
 there moves the next product). Whole model, kernels on against off, in
 fp32: log-probs within 1e-3. The attention backward kernel against the
 plain VJP: bf16 1e-2 for each of dq, dk and dv (the kernel rounds dS to a
-hi and a lo bf16 part where the plain VJP keeps it fp32).
+hi and a lo bf16 part where the plain VJP keeps it fp32). The forward's row
+statistics (each row's scaled max m and sum l) against
+``attention_stats_reference``, as the log-sum-exp they give: 1e-5 of
+max(1, max|ref|) (the same bf16 inputs; fp32 sums in another
+order, and the SFU's approximate exp2).
 """
+
+import math
 
 import pytest
 import torch
@@ -33,6 +39,7 @@ pytestmark = pytest.mark.gpu
 
 DTYPES = [(torch.float32, "fp32"), (torch.bfloat16, "bf16")]
 ATT_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+LSE_TOL = 1e-5
 BLOCK_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 
 
@@ -292,12 +299,20 @@ def _bwd_counts():
 
 
 def _check_backward(q, k, v, go, copies=0):
-    """The kernel against the plain VJP; exact route counters."""
+    """The kernel against the plain VJP; exact route counters. Without
+    statistics the backward has the forward kernel compute them (counted);
+    given the forward's, it returns the same gradients to the bit."""
     (routes, copied) = _bwd_counts()
+    recomputed = A.bwd_stats_recomputed
     got = A.attention_backward(q, k, v, go)
     torch.cuda.synchronize()
     assert _bwd_counts() == ({"wgmma": routes["wgmma"] + 1,
                               "plain": routes["plain"]}, copied + copies)
+    assert A.bwd_stats_recomputed == recomputed + 1
+    _, stats = A._launch(q, k, v, stats=True)
+    for a, b in zip(A.attention_backward(q, k, v, go, stats=stats), got):
+        assert torch.equal(a, b)
+    assert A.bwd_stats_recomputed == recomputed + 1
     want = A.attention_backward(q, k, v, go, route="plain")
     torch.cuda.synchronize()
     assert A.bwd_route_launches["plain"] == routes["plain"] + 1
@@ -327,6 +342,63 @@ def test_attention_backward_kernel_edges(cuda, B, H, Sq, Sk):
     _check_backward(q, k, v, _grad_out(cuda, B, H, Sq, True, seed=Sq * Sk))
 
 
+@pytest.mark.parametrize("B,H,S", [(128, 12, 213), (1, 2, 197)],
+                         ids=["wraps_the_grid", "most_sms_idle"])
+def test_attention_backward_kernel_head_counts(cuda, B, H, S):
+    """1536 heads wrap the persistent grid (one block per SM) several
+    times, through both slots of its ring; 2 heads leave all but two SMs
+    idle, each block with one head and no next one to load."""
+    q, k, v = _bf16_inputs(cuda, B, H, S, S, 64, True, seed=B + H)
+    _check_backward(q, k, v, _grad_out(cuda, B, H, S, True, seed=S))
+
+
+def _lse(stats):
+    """Each row's log-sum-exp of the scaled scores (natural log) from its
+    statistics (m, l): (m + log2 l) ln 2."""
+    return (stats[..., 0] + torch.log2(stats[..., 1])) * math.log(2.0)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk", TMA_SHAPES)
+def test_attention_forward_writes_row_statistics(cuda, B, H, Sq, Sk):
+    """The wgmma route's forward with statistics: the same output to the
+    bit, and each row's (m, l) against the plain ones, as the log-sum-exp
+    they give."""
+    q, k, v = _bf16_inputs(cuda, B, H, Sq, Sk, 64, True, seed=Sq * 3 + Sk)
+    before = A.stats_launches
+    out, stats = A._launch(q, k, v, stats=True)
+    torch.cuda.synchronize()
+    assert A.stats_launches == before + 1
+    assert torch.equal(out, A._launch(q, k, v))
+    assert A.stats_launches == before + 1
+    assert stats.shape == (B, H, Sq, 2) and stats.dtype == torch.float32
+    want = _lse(A.attention_stats_reference(q, k))
+    err = float((_lse(stats) - want).abs().max())
+    assert err <= LSE_TOL * max(1.0, float(want.abs().max())), err
+    with pytest.raises(ValueError, match="only the wgmma route"):
+        A._launch(q, k, v, route="mma_sync", stats=True)
+
+
+def test_serving_forwards_write_no_statistics(cuda):
+    """Statistics only where autograd will run the backward: not under
+    no_grad or inference_mode, not without an input that needs the
+    gradient, not off the wgmma route."""
+    q, k, v = (t.clone().requires_grad_() for t in
+               _bf16_inputs(cuda, 2, 12, 197, 197, 64, False, seed=40))
+    before = A.stats_launches
+    with torch.no_grad():
+        A.fused_attention(q, k, v)
+    with torch.inference_mode():
+        A.fused_attention(q, k, v)
+    A.fused_attention(*(t.detach() for t in (q, k, v)))
+    sga = [t.requires_grad_() for t in
+           _bf16_inputs(cuda, 2, 8, 16, 64, 96, False, seed=41)]
+    A.fused_attention(*sga)
+    torch.cuda.synchronize()
+    assert A.stats_launches == before
+    A.fused_attention(q, k, v)
+    assert A.stats_launches == before + 1
+
+
 def test_attention_backward_through_autograd(cuda):
     """The main path: the head views of [B, S, H*D] projections through
     ``fused_attention`` and its heads merged back, then ``backward()``: one
@@ -346,10 +418,14 @@ def test_attention_backward_through_autograd(cuda):
         return [x.grad for x in leaves]
 
     before = _bwd_counts()
+    stats, recomputed = A.stats_launches, A.bwd_stats_recomputed
     got = grads(A.fused_attention)
     torch.cuda.synchronize()
     assert _bwd_counts() == ({"wgmma": before[0]["wgmma"] + 1,
                               "plain": before[0]["plain"]}, before[1])
+    # the forward wrote the statistics and the backward consumed them
+    assert A.stats_launches == stats + 1
+    assert A.bwd_stats_recomputed == recomputed
     want = grads(A.attention_reference)
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= ATT_TOL["bf16"]
@@ -410,12 +486,19 @@ def test_attention_backward_refuses_what_it_does_not_take(cuda):
     go = torch.zeros_like(q)
     with pytest.raises(ValueError):
         A.attention_backward(q, k, v, go, route="wgmma")
+    stats = torch.ones(2, 8, 16, 2, device=cuda)
     with pytest.raises(RuntimeError, match="attention_backward_tma"):
-        A._launch_bwd(q, k, v, go)
+        A._launch_bwd(q, k, v, go, stats)
     q, k, v = _bf16_inputs(cuda, 2, 6, 197, 197, 64, True, seed=29)
+    stats = torch.ones(2, 6, 197, 2, device=cuda)
     with pytest.raises(ValueError):
         A._launch_bwd(q, k, v, torch.zeros(2, 6, 196, 64, device=cuda,
-                                           dtype=torch.bfloat16))
+                                           dtype=torch.bfloat16), stats)
+    go = torch.zeros_like(q)
+    for bad in (stats[:, :, :196], stats.to(torch.bfloat16), stats[..., 0],
+                stats.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError, match="stats must be"):
+            A._launch_bwd(q, k, v, go, bad)
 
 
 @pytest.mark.parametrize("dtype,name", DTYPES)
