@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core import constants
+from ..utils.profiling import span
 from .daquar import Sample
 from .preprocessing import load_image_batch
 from .tokenizer import get_tokenizer
@@ -93,8 +94,9 @@ class DaquarCollateBase:
 
     def _assemble(self, samples, images_key, images):
         annotation_ids, chosen = self._labels(samples)
-        q_ids, q_mask, d_ids, d_mask, a_ids, a_mask = self._text_feeds(
-            samples, chosen)
+        with span("collate.text"):
+            q_ids, q_mask, d_ids, d_mask, a_ids, a_mask = self._text_feeds(
+                samples, chosen)
         batch: Dict[str, np.ndarray] = {
             "question_input_ids": q_ids,
             "decoder_question_input_ids": d_ids,
@@ -123,8 +125,12 @@ class DaquarCollateBase:
             reduce=self.reduced_decode, workers=self.num_workers)
 
     def __call__(self, samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
-        images = (self.load_images([s.image_path for s in samples])
-                  if self.emit_images else None)
+        images = None
+        if self.emit_images:
+            # the range sits at the call, so it also covers a
+            # ``load_images`` that an instance replaces
+            with span("collate.images"):
+                images = self.load_images([s.image_path for s in samples])
         return self._assemble(samples, self.images_key, images)
 
 

@@ -12,6 +12,13 @@ tensor there: for a CUDA device through pinned host memory and a copy with
 thread's current stream, which is the device's default stream, the one
 the train and eval steps run on, so a step never reads a batch whose copy
 has not landed.
+
+The consumer's wait for a batch is the range ``input.wait``, and the
+producer's work the ranges ``input.collate`` and ``input.copy``
+(``utils/profiling.py``). The counters ``input.waits`` and
+``input.waits_empty`` count the consumer's takes from the queue (one a
+batch, and one at the end of a pass) and those that found it empty, so
+that the step waited for the producer.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, span
 
 
 class DataLoader:
@@ -112,9 +121,15 @@ class Prefetcher:
 
         def producer():
             try:
-                for batch in self.loader:
+                batches = iter(self.loader)
+                while True:
+                    with span("input.collate"):
+                        batch = next(batches, sentinel)
+                    if batch is sentinel:
+                        return
                     if self.device is not None:
-                        batch = to_device(batch, self.device)
+                        with span("input.copy"):
+                            batch = to_device(batch, self.device)
                     while not stop.is_set():
                         try:
                             q.put(batch, timeout=0.1)
@@ -132,7 +147,13 @@ class Prefetcher:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("input.wait"):
+                    try:
+                        item = q.get_nowait()
+                    except queue.Empty:
+                        count("input.waits_empty")
+                        item = q.get()
+                count("input.waits")
                 if item is sentinel:
                     if err:
                         raise err[0]

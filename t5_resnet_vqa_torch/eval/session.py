@@ -43,6 +43,7 @@ from ..data.collate import DaquarCnnCollate, DaquarVitCollate
 from ..data.daquar import Annotation, Question, Sample
 from ..models import generation
 from ..parallel import sharding as shd
+from ..utils.profiling import count, span
 from .predict import convert_logits_to_predictions_topk
 
 CNN_FAMILY = "cnn"
@@ -183,8 +184,9 @@ class VQAInferenceSession:
             pending.append((self._dispatch_chunk(chunk), len(chunk)))
         out: List[dict] = []
         for log_probs, n in pending:
-            log_probs = self._gather(log_probs)
-            out.extend(self._decode(log_probs[:n].cpu().numpy(), top_k))
+            with span("session.readback"):
+                log_probs = self._gather(log_probs)[:n].cpu().numpy()
+            out.extend(self._decode(log_probs, top_k))
         return out
 
     def generate(self, image: str, question: str, num_beams: int = 1,
@@ -237,9 +239,10 @@ class VQAInferenceSession:
             pending.append((tokens, scores, len(chunk)))
         out: List[dict] = []
         for tokens, scores, n in pending:
-            tokens = self._gather(tokens)[:n].cpu().numpy()
-            if scores is not None:
-                scores = self._gather(scores)[:n].cpu().numpy()
+            with span("session.readback"):
+                tokens = self._gather(tokens)[:n].cpu().numpy()
+                if scores is not None:
+                    scores = self._gather(scores)[:n].cpu().numpy()
             for i in range(n):
                 ids = [int(t) for t in tokens[i] if int(t) != 0]
                 rec = {"answer_text": tokenizer.decode(ids), "token_ids": ids}
@@ -250,9 +253,11 @@ class VQAInferenceSession:
 
     # ------------------------------------------------------------- internals
 
+    @span("session.collate")
     def _collate_chunk(self, chunk: Sequence[Tuple[str, str]]
                        ) -> Dict[str, np.ndarray]:
         """Collate and pad a request chunk to the fixed batch shape."""
+        count("session.chunks")
         dummy = [self.answer_spaces[0]]
         samples = [
             Sample(Question(q, f"req_{i}", f"req_{i}"),
@@ -275,15 +280,24 @@ class VQAInferenceSession:
         """A chunk's per-row results on every rank (a mesh's data axis)."""
         return t if self.mesh is None else shd.gather_rows(t, self.mesh)
 
+    @span("session.copy")
     def _to_device(self, batch: Mapping[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            self.device, non_blocking=True) for k, v in batch.items()}
+        """The chunk's arrays as tensors on the device. They come from
+        pageable host memory: a copy to a CUDA device is counted in
+        ``session.pageable_bytes``."""
+        host = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+        if self.device.type == "cuda":
+            count("session.pageable_bytes",
+                  sum(v.nbytes for v in host.values()))
+        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                for k, v in host.items()}
 
     def _autocast(self):
         from ..train.trainer import _autocast
         return _autocast(self.device, self.compute_dtype)
 
+    @span("session.forward")
     def _predict(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """One forward on a device batch; returns fp32 log-probs [B, A]."""
         with torch.inference_mode(), self._autocast():
@@ -295,6 +309,7 @@ class VQAInferenceSession:
         """Collate, pad, copy to the device and launch; no host sync."""
         return self._predict(self._to_device(self._collate_chunk(chunk)))
 
+    @span("session.decode")
     def _decode(self, log_probs: np.ndarray, top_k: int) -> List[dict]:
         order = convert_logits_to_predictions_topk(log_probs, top_k)
         probs = np.exp(np.take_along_axis(log_probs, order, axis=-1))

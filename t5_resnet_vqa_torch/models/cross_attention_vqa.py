@@ -42,6 +42,7 @@ from torch import nn
 from ..core import constants
 from ..core.device import DeviceLike, resolve_device
 from ..ops import AttentionPooler, log_softmax_nll
+from ..utils.profiling import span
 from .image_input import finalize_image_input
 from .resnet_vqa import init_weights
 from .roberta import RobertaConfig, RobertaEmbeddings, RobertaLayer
@@ -121,24 +122,30 @@ class CrossAttentionVitVQAModel(nn.Module):
         question_type_ids: Optional[torch.Tensor] = None,
     ):
         n_img = self.num_image_tokens
-        x = finalize_image_input(pixel_values, _VIT_NORMALIZE)
-        with self._vision_grad():
-            image_emb = self.vit_embeddings(x)
-        text_emb = self.roberta_embeddings(question_input_ids)
+        with span("model.vision"):
+            x = finalize_image_input(pixel_values, _VIT_NORMALIZE)
+            with self._vision_grad():
+                image_emb = self.vit_embeddings(x)
+        with span("model.text"):
+            text_emb = self.roberta_embeddings(question_input_ids)
 
         concat_embeddings = torch.cat([image_emb, text_emb], dim=1)
         concat_hidden = concat_embeddings
         image_hidden = image_emb
         for roberta, vit in zip(self.roberta_encoder_layers,
                                 self.vit_encoder_layers):
-            roberta_hidden = roberta(concat_hidden)
-            with self._vision_grad():
+            with span("model.text"):
+                roberta_hidden = roberta(concat_hidden)
+            with span("model.vision"), self._vision_grad():
                 image_hidden = vit(image_hidden)[0]
-            concat_hidden = torch.cat(
-                [roberta_hidden[:, n_img:], image_hidden], dim=1)
-            concat_hidden = self.layer_norm(concat_hidden + concat_embeddings)
+            with span("model.fusion"):
+                concat_hidden = torch.cat(
+                    [roberta_hidden[:, n_img:], image_hidden], dim=1)
+                concat_hidden = self.layer_norm(
+                    concat_hidden + concat_embeddings)
 
-        pooled = self.attention_pooler(concat_hidden)
-        logits = self.classification_layer(pooled)
-        return log_softmax_nll(logits, annotation_ids,
-                               temperature=self.temperature_scaler)
+        with span("model.head"):
+            pooled = self.attention_pooler(concat_hidden)
+            logits = self.classification_layer(pooled)
+            return log_softmax_nll(logits, annotation_ids,
+                                   temperature=self.temperature_scaler)

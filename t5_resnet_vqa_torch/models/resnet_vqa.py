@@ -40,6 +40,7 @@ from ..ops import (
     SGAStack,
     log_softmax_nll,
 )
+from ..utils.profiling import span
 from .image_input import finalize_image_input
 from .resnet import (
     Bottleneck,
@@ -174,22 +175,25 @@ class ResnetVQAModel(nn.Module):
         if vision_features is not None:
             image_features = vision_features.to(self._dtype())
         else:
-            image_features = self.compute_vision_features(image_tensors)
+            with span("model.vision"):
+                image_features = self.compute_vision_features(image_tensors)
 
-        vision_embeddings = self.projection(
-            image_features.permute(0, 3, 1, 2))           # [B, hidden, h, w]
-        B, hidden = vision_embeddings.shape[:2]
-        # row-major h*w token order, whatever the memory layout
-        vision_tokens = vision_embeddings.permute(0, 2, 3, 1).reshape(
-            B, -1, hidden)
-
-        text_states = self.lang_model(question_input_ids,
-                                      question_attention_masks)
-        fused = self.sga_modules(text_states, vision_tokens)
-        pooled = self.attention_pooler(fused)
-        logits = self.classification_layer(pooled)
-        log_probs, loss = log_softmax_nll(logits, annotation_ids,
-                                          temperature=self.temperature_scaler)
+        with span("model.text"):
+            text_states = self.lang_model(question_input_ids,
+                                          question_attention_masks)
+        with span("model.fusion"):
+            vision_embeddings = self.projection(
+                image_features.permute(0, 3, 1, 2))       # [B, hidden, h, w]
+            B, hidden = vision_embeddings.shape[:2]
+            # row-major h*w token order, whatever the memory layout
+            vision_tokens = vision_embeddings.permute(0, 2, 3, 1).reshape(
+                B, -1, hidden)
+            fused = self.sga_modules(text_states, vision_tokens)
+        with span("model.head"):
+            pooled = self.attention_pooler(fused)
+            logits = self.classification_layer(pooled)
+            log_probs, loss = log_softmax_nll(
+                logits, annotation_ids, temperature=self.temperature_scaler)
         if return_features:
             return log_probs, loss, {"features": image_features}
         return log_probs, loss

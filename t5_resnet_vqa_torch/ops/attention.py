@@ -83,6 +83,11 @@ The backward (``attention_backward``, the counterpart of ``_fas_bwd`` at
 
 ``bwd_route_launches`` counts the CUDA backward passes by route; CPU
 tensors take the plain VJP and count nothing.
+
+Every ``fused_attention`` call is the profiler range ``op.attention``, and
+the CUDA path of ``attention_backward`` the range ``op.attention_bwd``, on
+the thread autograd runs it on (``utils/profiling.py``): they time the op
+whatever route or kernel implements it.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from . import kernel_build
 
 launches = 0
@@ -363,14 +369,15 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"CPU tensors take the plain VJP, not the "
                              f"{route!r} route")
         return _plain_vjp(q, k, v, g)
-    _check(q, k, v)
-    if _forced_bwd_route(q, k, v, route) == "plain":
-        bwd_route_launches["plain"] += 1
-        return _plain_vjp(q, k, v, g)
-    if stats is None:
-        _, stats = _launch(q, k, v, stats=True)
-        bwd_stats_recomputed += 1
-    return _launch_bwd(q, k, v, g, stats)
+    with span("op.attention_bwd"):
+        _check(q, k, v)
+        if _forced_bwd_route(q, k, v, route) == "plain":
+            bwd_route_launches["plain"] += 1
+            return _plain_vjp(q, k, v, g)
+        if stats is None:
+            _, stats = _launch(q, k, v, stats=True)
+            bwd_stats_recomputed += 1
+        return _launch_bwd(q, k, v, g, stats)
 
 
 def _saves_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -399,6 +406,7 @@ class _FusedAttention(torch.autograd.Function):
                                     if row_stats else None), None)
 
 
+@span("op.attention")
 def fused_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Unmasked attention over q [B, H, Sq, D], k/v [B, H, Sk, D].

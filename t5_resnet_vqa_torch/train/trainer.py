@@ -20,7 +20,11 @@ package's ``train/trainer.py``, with its log lines and artifacts:
   * ``load_from_checkpoint`` resumes from the pair (weights, AdamW moments,
     the schedule's position, epoch and step), or else from ``best-model.pt``
     weights alone, and reports how far the previous run had got;
-  * ``trace_dir``: a ``torch.profiler`` Chrome trace of epoch 0's steps;
+  * ``trace_dir``: a ``torch.profiler`` Chrome trace of epoch 0's steps,
+    over every thread, with the port's ``vqa.`` ranges
+    (``utils/profiling.py``: the step's forward, backward, clip and
+    optimizer, the input pipeline's wait, collate and copy, the model's
+    parts, kernel 1);
     ``compute_rouge``: ROUGE-1/2/L of the validation predictions;
   * ``metrics.jsonl`` records; KeyboardInterrupt saves and stops.
 
@@ -181,18 +185,22 @@ def make_train_step(model: nn.Module, optimizer, scheduler,
     """One optimizer step on a device batch -> (loss, argmax predictions),
     both left on the device. The caller puts the model in ``train()``.
     ``tp``: the model axis of a mesh (the clip's norm is the full
-    tensors')."""
+    tensors'). Its parts are the ranges ``step.forward``,
+    ``step.backward``, ``step.clip`` and ``step.optimizer``."""
     device = next(model.parameters()).device
 
     def train_step(batch: Dict[str, torch.Tensor]):
         optimizer.zero_grad(set_to_none=True)
-        with _autocast(device, compute_dtype):
+        with profiling.span("step.forward"), _autocast(device, compute_dtype):
             log_probs, loss = model(**batch)
-        loss.backward()
+        with profiling.span("step.backward"):
+            loss.backward()
         if gradient_clipping:
-            clip_grad_norm_(trainable, gradient_clipping, tp)
-        optimizer.step()
-        scheduler.step()
+            with profiling.span("step.clip"):
+                clip_grad_norm_(trainable, gradient_clipping, tp)
+        with profiling.span("step.optimizer"):
+            optimizer.step()
+            scheduler.step()
         return loss.detach(), log_probs.detach().argmax(-1)
 
     return train_step
