@@ -17,17 +17,22 @@ the decoder, ``final_layer_norm``):
     table (``shared``, ``encoder.embed_tokens``, ``decoder.embed_tokens``
     and ``lm_head`` are one ``nn.Parameter``), as the reference's
     ``T5ForConditionalGeneration`` ties them.
+  * A grad-free encoder forward on a card replays a CUDA graph of itself
+    (``T5Encoder``'s docstring): a few hundred small launches become one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Set, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.profiling import count
 
 _NEG_INF = -1e9
 
@@ -273,9 +278,54 @@ class T5DecoderBlock(nn.Module):
         return self.layer[2](x), position_bias, encdec_bias
 
 
+class _Graph(NamedTuple):
+    """One captured encoder forward: its static inputs and output."""
+
+    graph: "torch.cuda.CUDAGraph"
+    ids: torch.Tensor
+    mask: Optional[torch.Tensor]
+    out: torch.Tensor
+
+
 class T5Encoder(nn.Module):
     """Encoder stack (HF T5EncoderModel layout). It owns its token table,
-    unless ``embed_tokens`` hands it one to share."""
+    unless ``embed_tokens`` hands it one to share.
+
+    A forward replays a CUDA graph of itself where the call allows it, and
+    runs eagerly otherwise; both give the same result. It replays when the
+    ids are on a CUDA device, no gradient is recorded (``inference_mode``
+    or ``no_grad``), every module of the stack is in ``eval()``, none is
+    split over a mesh (``T5Attention.tp`` unset), no forward hook or
+    pre-hook is registered on any of them or globally, and the current
+    stream is not capturing. So training, every call on the CPU and every
+    hooked forward run eagerly.
+
+    One graph per signature: the shapes and dtypes of the ids and of the
+    mask (and whether there is one), whether autocast is on and its dtype,
+    ``torch.is_inference_mode_enabled()`` (an inference tensor cannot be
+    written outside it) and the device. A signature runs eagerly the first
+    time it is seen and is captured the second time: warmed up on a side
+    stream, then captured there (``capture_error_mode="thread_local"``, so
+    that another thread may pin memory meanwhile) under an autocast with
+    its cache off, so that the graph casts the weights on each replay as
+    the eager forward does on each call. At most ``MAX_GRAPHS`` graphs are
+    kept; later signatures run eagerly. A replay copies the ids and the
+    mask into the graph's inputs and returns a copy of its output, which
+    the next replay overwrites. Those inputs and outputs are shared by
+    every call: callers on several threads take turns (as the HTTP server
+    does with its lock).
+
+    The graph reads the weights where they lay at capture: a strict
+    ``load_state_dict`` and an optimizer's in-place update keep them there,
+    so a trainer's eval between steps sees the current weights. ``.to()``,
+    ``.cuda()``, ``.half()`` and the like move them and drop every graph
+    (``_apply``); anything else that replaces a parameter's tensor
+    (assigning ``.data`` or a new ``nn.Parameter``, ``load_state_dict(...,
+    assign=True)``) must call ``drop_graphs()``, or the graphs go on
+    reading the old tensors.
+    """
+
+    MAX_GRAPHS = 8
 
     def __init__(self, config: T5Config,
                  embed_tokens: Optional[nn.Embedding] = None):
@@ -289,10 +339,21 @@ class T5Encoder(nn.Module):
         self.final_layer_norm = RMSNorm(config.d_model,
                                         config.layer_norm_epsilon)
         self.dropout = nn.Dropout(config.dropout_rate)
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._seen: Set[tuple] = set()
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        count("text.forwards")
+        if self._graphable(input_ids):
+            out = self._replay(input_ids, attention_mask)
+            if out is not None:
+                return out
+        return self._eager(input_ids, attention_mask)
+
+    def _eager(self, input_ids: torch.Tensor,
+               attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.dropout(self.embed_tokens(input_ids.long()))
         mask_bias = (attention_mask_bias(attention_mask)
                      if attention_mask is not None else None)
@@ -300,6 +361,97 @@ class T5Encoder(nn.Module):
         for block in self.block:
             x, position_bias = block(x, position_bias, mask_bias)
         return self.dropout(self.final_layer_norm(x))
+
+    def _graphable(self, input_ids: torch.Tensor) -> bool:
+        """Whether this call may replay a graph (the class docstring)."""
+        hooks = nn.modules.module
+        if (not input_ids.is_cuda or torch.is_grad_enabled()
+                or hooks._global_forward_hooks
+                or hooks._global_forward_pre_hooks
+                or torch.cuda.is_current_stream_capturing()):
+            return False
+        todo = [self]
+        while todo:     # the stack's modules (cheaper than ``modules()``)
+            m = todo.pop()
+            if m is None:
+                continue
+            d = m.__dict__
+            if (d["training"] or d["_forward_hooks"]
+                    or d["_forward_pre_hooks"] or d.get("tp") is not None):
+                return False
+            todo.extend(d["_modules"].values())
+        return True
+
+    def drop_graphs(self) -> None:
+        """Forget every captured graph and signature."""
+        self._graphs.clear()
+        self._seen.clear()
+
+    def _apply(self, fn, *args, **kwargs):
+        # ``.to()``, ``.cuda()``, ``.half()``... move the weights
+        self.drop_graphs()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _replay(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+        """The forward as a replay of this signature's graph (captured on
+        its second call), or None where it runs eagerly."""
+        device = input_ids.device
+        cast = (torch.get_autocast_dtype(device.type)
+                if torch.is_autocast_enabled(device.type) else None)
+        key = (input_ids.shape, input_ids.dtype,
+               None if attention_mask is None else
+               (attention_mask.shape, attention_mask.dtype),
+               cast, torch.is_inference_mode_enabled(), device)
+        entry = self._graphs.get(key)
+        if entry is None:
+            if key not in self._seen:
+                self._seen.add(key)
+                return None
+            if len(self._graphs) >= self.MAX_GRAPHS:
+                return None
+            entry = self._graphs[key] = self._capture(
+                input_ids, attention_mask, cast)
+            count("text.graph_captures")
+        entry.ids.copy_(input_ids)
+        if attention_mask is not None:
+            entry.mask.copy_(attention_mask)
+        entry.graph.replay()
+        count("text.graph_replays")
+        return entry.out.clone()
+
+    def _capture(self, input_ids: torch.Tensor,
+                 attention_mask: Optional[torch.Tensor],
+                 cast_dtype: Optional[torch.dtype]) -> _Graph:
+        """Warm up on a side stream, then capture there. cuBLAS keeps a
+        workspace per stream, which a graph's products read where they
+        found it: the workspaces are dropped before the capture, so that
+        the capture stream's own is drawn from the graph's private pool,
+        and again after it, so that it returns there and the side stream
+        holds no workspace of the common pool (32 MiB on an H100)."""
+        ids = input_ids.clone()
+        mask = None if attention_mask is None else attention_mask.clone()
+        device = input_ids.device
+
+        def cast():
+            return (contextlib.nullcontext() if cast_dtype is None else
+                    torch.autocast(device.type, dtype=cast_dtype,
+                                   cache_enabled=False))
+
+        with torch.cuda.device(device):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream), cast():
+                self._eager(ids, mask)
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            torch._C._cuda_clearCublasWorkspaces()
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"), cast():
+                out = self._eager(ids, mask)
+            torch._C._cuda_clearCublasWorkspaces()
+        return _Graph(graph, ids, mask, out)
 
 
 class T5Decoder(nn.Module):

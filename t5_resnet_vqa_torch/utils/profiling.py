@@ -51,9 +51,11 @@ The ranges (each ``vqa.`` + the name):
 The counters: ``session.chunks`` (chunks collated), ``session.pageable_bytes``
 (bytes the session copies to a CUDA device from pageable host memory),
 ``input.waits`` (the consumer's takes from the prefetcher's queue: one a
-batch, and one at the end of a pass) and ``input.waits_empty`` (of those,
+batch, and one at the end of a pass), ``input.waits_empty`` (of those,
 the ones that found the queue empty, so that the step waited for the
-producer).
+producer); ``text.forwards`` (every ``T5Encoder`` forward, in
+``models/t5.py``), ``text.graph_replays`` (those that ran as a replay of
+a CUDA graph) and ``text.graph_captures`` (one per captured signature).
 """
 
 from __future__ import annotations

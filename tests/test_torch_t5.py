@@ -4,8 +4,12 @@
 ``T5Config.tiny()`` with a padded attention mask; JAX params reach the port
 through the weight bridge and a strict load, HF weights by their own keys.
 fp32, rtol/atol 1e-5. The relative-position buckets must be identical
-integers.
+integers. On the CPU the encoder's CUDA-graph replay never engages: every
+forward is the eager one, to the bit, and is counted as such
+(``tests/test_torch_text_graph_gpu.py`` holds the replay on a card).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import torch
 
 from t5_resnet_vqa_tpu.models import t5 as jt5
 from t5_resnet_vqa_torch.models import t5 as pt5
+from t5_resnet_vqa_torch.utils import profiling
 from t5_resnet_vqa_torch.utils import weights as W
 
 torch.set_num_threads(2)
@@ -111,3 +116,59 @@ def test_encoder_matches_hf_t5_encoder(monkeypatch):
         got = enc.eval()(ids_t, mask_t)
     np.testing.assert_allclose(got.numpy(), want.last_hidden_state.numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# --- the encoder's CUDA-graph replay (``T5Encoder``): on the CPU it never
+# engages, and every call runs today's eager forward
+
+
+def _text_counters():
+    got = profiling.counters()
+    return tuple(got.get(f"text.{k}", 0)
+                 for k in ("forwards", "graph_replays", "graph_captures"))
+
+
+def _eager_forward(enc, ids, mask):
+    """The encoder's forward as the stack computes it, module by module."""
+    x = enc.dropout(enc.embed_tokens(ids.long()))
+    mask_bias = pt5.attention_mask_bias(mask)
+    position_bias = None
+    for block in enc.block:
+        x, position_bias = block(x, position_bias, mask_bias)
+    return enc.dropout(enc.final_layer_norm(x))
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "grad",
+                                  "train"])
+def test_encoder_on_the_cpu_runs_eagerly_and_counts(mode):
+    _, _, enc, ids, mask = _encoder_pair()
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    if mode == "train":
+        enc.train()
+    grad = {"inference_mode": torch.inference_mode(),
+            "no_grad": torch.no_grad()}.get(mode, contextlib.nullcontext())
+    before = _text_counters()
+    for i in range(3):
+        with grad:
+            torch.manual_seed(i)        # the same dropout masks in train()
+            got = enc(ids, mask)
+            torch.manual_seed(i)
+            want = _eager_forward(enc, ids, mask)
+        assert torch.equal(got, want)
+        assert got.requires_grad == (mode in ("grad", "train"))
+    forwards, replays, captures = (a - b for a, b in
+                                   zip(_text_counters(), before))
+    assert (forwards, replays, captures) == (3, 0, 0)
+    assert not enc._graphs and not enc._seen
+
+
+def test_moving_the_encoder_drops_its_graphs():
+    _, _, enc, _, _ = _encoder_pair()
+    key = ("signature",)
+    enc._graphs[key] = object()
+    enc._seen.add(key)
+    enc.double()
+    assert not enc._graphs and not enc._seen
+    enc._graphs[key] = object()
+    enc.drop_graphs()
+    assert not enc._graphs
