@@ -1,9 +1,14 @@
 """Host-side data path: records and datasets (DAQUAR, OK-VQA), the answer
-space, tokenizer, images, the CNN and ViT collates, batching and prefetch,
+space, tokenizer, images, the CNN, ViT and Kimi-VL collates, batching and prefetch,
 synthetic data."""
 
 from .answer_space import build_answer_space, write_answer_space
-from .collate import DaquarCnnCollate, DaquarCollateBase, DaquarVitCollate
+from .collate import (
+    DaquarCnnCollate,
+    DaquarCollateBase,
+    DaquarVitCollate,
+    KimiVLCollate,
+)
 from .daquar import (
     Annotation,
     DaquarDataset,
@@ -24,7 +29,8 @@ from .tokenizer import HashTokenizer, get_tokenizer
 
 __all__ = [
     "Annotation", "DaquarCnnCollate", "DaquarCollateBase", "DaquarDataset",
-    "DaquarVitCollate", "DataLoader", "HashTokenizer", "OKVQADataset",
+    "DaquarVitCollate", "DataLoader", "HashTokenizer", "KimiVLCollate",
+    "OKVQADataset",
     "OkVqaAnnotation", "OkVqaCollate", "OkVqaSample", "OkVqaTrainableDataset",
     "Prefetcher", "Question", "Sample", "build_answer_space",
     "get_tokenizer", "load_answer_spaces", "make_synthetic_daquar",

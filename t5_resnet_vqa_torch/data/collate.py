@@ -16,11 +16,15 @@ native library for a bilinear float batch with ``use_native``), then
 or the resized uint8 batch with ``emit_uint8``, which the model scales (and
 normalizes) on the device. ``reduced_decode`` and ``num_workers`` are the
 loader's ``reduce`` and ``workers`` (``data/preprocessing.py``).
+
+``KimiVLCollate`` (the ``kimi_vl`` family, which generates its answers)
+builds Kimi-VL chat prompts around the image placeholders and pads the
+uint8 images, at their own size, to multiples of the patch merge.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,7 +32,7 @@ from ..core import constants
 from ..utils.profiling import span
 from .daquar import Sample
 from .preprocessing import load_image_batch
-from .tokenizer import get_tokenizer
+from .tokenizer import HashTokenizer, get_tokenizer
 
 
 class DaquarCollateBase:
@@ -169,3 +173,98 @@ class DaquarVitCollate(DaquarCollateBase):
                          num_workers)
         self.resizing_dimensions = (constants.VIT_IMAGE_SIZE,
                                     constants.VIT_IMAGE_SIZE)
+
+
+class KimiVLCollate:
+    """(image path, question) requests -> Kimi-VL prompts and images.
+
+    Each image is decoded at ``image_size`` (H, W; DAQUAR's NYU frames are
+    480 x 640) as uint8 and padded with zeros at the bottom and right to
+    multiples of ``patch * merge`` pixels (504 x 644: 36 x 46 patches,
+    414 image tokens). The prompt is Kimi-VL's chat turn
+
+        <|im_user|> user <|im_middle|> <|media_start|> image
+        <|media_content|> <|media_pad|> x n <|media_end|> {question}
+        <|im_end|> <|im_assistant|> assistant <|im_middle|>
+
+    with the words through ``tokenizer`` (at most ``max_question_tokens``
+    of the question), padded on the right with ``pad`` to one length for
+    every batch. The special ids are ``special_tokens`` over
+    ``SPECIAL_TOKENS``, those assumed of Kimi-VL's tokenizer (its
+    ``<|media_pad|>`` is the published ``media_placeholder_token_id``);
+    ``eos`` (``<|im_end|>``) ends an answer.
+
+    ``__call__(requests, batch)`` -> ``input_ids`` int64 [batch, L],
+    ``lengths`` int64 [batch], ``pixel_values`` uint8 [batch, H', W', 3];
+    rows past the requests repeat the first.
+    """
+
+    SPECIAL_TOKENS = {"im_end": 163586, "im_user": 163587,
+                      "im_assistant": 163588, "im_middle": 163601,
+                      "media_start": 163602, "media_content": 163603,
+                      "media_end": 163604, "media_pad": 163605, "pad": 163839}
+
+    def __init__(self, tokenizer=None, image_size=(480, 640),
+                 patch_size: int = 14, merge: int = 2,
+                 max_question_tokens: int = 23,
+                 special_tokens: Optional[Mapping[str, int]] = None,
+                 reduced_decode: int = 0, num_workers: int = 0):
+        self.tokenizer = tokenizer or HashTokenizer(vocab_size=163840)
+        self.image_size = tuple(image_size)
+        step = patch_size * merge
+        self.padded_size = tuple(-(-n // step) * step
+                                 for n in self.image_size)
+        self.image_tokens = (self.padded_size[0] // step) * \
+            (self.padded_size[1] // step)
+        self.max_question_tokens = max_question_tokens
+        self.reduced_decode = reduced_decode
+        self.num_workers = num_workers
+        sp = {**self.SPECIAL_TOKENS, **(special_tokens or {})}
+        self.eos, self.pad = sp["im_end"], sp["pad"]
+        words = lambda text: self._words([text], 8)[0]
+        self.prefix = [sp["im_user"], *words("user"), sp["im_middle"],
+                       sp["media_start"], *words("image"), sp["media_content"],
+                       *[sp["media_pad"]] * self.image_tokens,
+                       sp["media_end"]]
+        self.suffix = [sp["im_end"], sp["im_assistant"], *words("assistant"),
+                       sp["im_middle"]]
+        self.length = len(self.prefix) + max_question_tokens \
+            + len(self.suffix)
+
+    def _words(self, texts: Sequence[str], limit: int) -> List[List[int]]:
+        """Each text's ids, without the tokenizer's end token."""
+        ids, mask = self.tokenizer(list(texts), limit + 1)
+        eos = getattr(self.tokenizer, "eos_token_id", None)
+        out = []
+        for row, n in zip(ids, mask.sum(axis=1)):
+            row = [int(t) for t in row[:n]]
+            out.append(row[:-1] if row and row[-1] == eos else row[:limit])
+        return out
+
+    def load_images(self, paths: Sequence[str]) -> np.ndarray:
+        """uint8 [B, H, W, 3] at ``image_size``."""
+        h, w = self.image_size
+        return load_image_batch(
+            list(paths), (w, h), emit_uint8=True, reduce=self.reduced_decode,
+            workers=self.num_workers)
+
+    def __call__(self, requests: Sequence[Tuple[str, str]], batch: int
+                 ) -> Dict[str, np.ndarray]:
+        n = len(requests)
+        fill = list(range(n)) + [0] * (batch - n)
+        with span("collate.images"):
+            images = self.load_images([requests[i][0] for i in range(n)])
+            h, w = self.image_size
+            pixels = np.zeros((batch, *self.padded_size, 3), np.uint8)
+            pixels[:, :h, :w] = images[fill]
+        with span("collate.text"):
+            questions = self._words([q for _, q in requests],
+                                    self.max_question_tokens)
+            input_ids = np.full((batch, self.length), self.pad, np.int64)
+            lengths = np.empty(batch, np.int64)
+            for row, i in enumerate(fill):
+                prompt = self.prefix + questions[i] + self.suffix
+                input_ids[row, :len(prompt)] = prompt
+                lengths[row] = len(prompt)
+        return {"input_ids": input_ids, "lengths": lengths,
+                "pixel_values": pixels}

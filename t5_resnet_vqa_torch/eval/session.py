@@ -9,7 +9,16 @@ pixel values with mean = std = 0.5; uint8 on the wire, or float from the
 host, bilinear through the native resize, with ``uint8_wire=False``),
 padded up to a fixed batch, run under ``torch.inference_mode`` with the
 model in ``eval()``, and decoded: ``ask_batch`` against the answer space,
-``generate_batch`` (ViT family only) into token ids and text.
+``generate_batch`` (the ViT and Kimi-VL families) into token ids and text.
+
+The ``kimi_vl`` family (``models/kimi_vl.py``) only generates: its collate
+(``KimiVLCollate``) builds chat prompts around 414 image placeholders and
+pads the uint8 images; ``generate_batch`` prefills each chunk's prompts
+once and decodes through the latent cache
+(``generation.cached_greedy_generate``), and its records add
+``"token_logprobs"``. Its model computes in the dtype of its weights (no
+autocast), and a ``state_dict`` is taken as it is (``assign=True``) into a
+model built on ``meta``, so the session holds one copy of the weights.
 
 ``from_checkpoint`` serves what a trainer wrote: ``best-model.pt`` and the
 answer space of ``model_ckpt_info.json`` under the config's output
@@ -39,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
-from ..data.collate import DaquarCnnCollate, DaquarVitCollate
+from ..data.collate import DaquarCnnCollate, DaquarVitCollate, KimiVLCollate
 from ..data.daquar import Annotation, Question, Sample
 from ..models import generation
 from ..parallel import sharding as shd
@@ -49,6 +58,7 @@ from .predict import convert_logits_to_predictions_topk
 CNN_FAMILY = "cnn"
 VIT_FAMILY = "vit"
 CROSS_FAMILY = "cross_attention"
+KIMI_FAMILY = "kimi_vl"
 
 # collate keys the forward does not take (the eval records, the dummy label)
 _HOST_KEYS = ("answers", "questions", "image_fns", "annotation_ids")
@@ -78,10 +88,15 @@ class VQAInferenceSession:
                  compute_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
                  mesh: Optional[shd.Mesh] = None):
-        if family not in (CNN_FAMILY, VIT_FAMILY, CROSS_FAMILY):
+        if family not in (CNN_FAMILY, VIT_FAMILY, CROSS_FAMILY, KIMI_FAMILY):
             raise NotImplementedError(
-                f"the port serves the {CNN_FAMILY!r}, {VIT_FAMILY!r} and "
-                f"{CROSS_FAMILY!r} families, not {family!r}")
+                f"the port serves the {CNN_FAMILY!r}, {VIT_FAMILY!r}, "
+                f"{CROSS_FAMILY!r} and {KIMI_FAMILY!r} families, not "
+                f"{family!r}")
+        if family == KIMI_FAMILY and (mesh is not None or not uint8_wire):
+            raise NotImplementedError(
+                f"the {KIMI_FAMILY!r} family is served on one device with "
+                f"uint8 images")
         if mesh is not None and batch_size % mesh.data:
             raise ValueError(
                 f"serving batch_size {batch_size} must divide evenly over "
@@ -102,9 +117,20 @@ class VQAInferenceSession:
             self.collate = DaquarCnnCollate(
                 self.answer_spaces, interpolation_strategy,
                 resizing_dimensions=(image_size, image_size), **kw)
+        elif family == KIMI_FAMILY:
+            config = model.config
+            self.collate = KimiVLCollate(
+                tokenizer, image_size if isinstance(image_size, tuple)
+                else (image_size, image_size), config.vision.patch_size,
+                config.vision.merge, config.max_question_tokens,
+                {**dict(config.special_tokens),
+                 "media_pad": config.media_placeholder_token_id},
+                reduced_decode=reduced_decode, num_workers=num_workers)
         else:
             self.collate = DaquarVitCollate(self.answer_spaces, **kw)
-        if state_dict is not None:
+        if state_dict is not None and family == KIMI_FAMILY:
+            model.load_state_dict(state_dict, strict=True, assign=True)
+        elif state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         from ..train.trainer import prepare_model
         self.model = prepare_model(model, self.device, compute_dtype).eval()
@@ -202,8 +228,15 @@ class VQAInferenceSession:
         ``num_beams == 1``, beam search otherwise, continuing the collate's
         "[Question] {q} [Answer]" prompt. Returns per-request
         ``{"answer_text", "token_ids"}``, with ``"score"`` for beam search.
-        The hash tokenizer cannot invert word ids, so its ``answer_text``
-        holds ``<id>`` placeholders (a warning says so)."""
+        The ``kimi_vl`` family generates greedily through its cache
+        (``_generate_cached``). The hash tokenizer cannot invert word ids,
+        so its ``answer_text`` holds ``<id>`` placeholders (a warning says
+        so)."""
+        if self.family == KIMI_FAMILY:
+            if num_beams != 1:
+                raise ValueError(f"the {KIMI_FAMILY!r} family generates "
+                                 f"greedily (num_beams=1)")
+            return self._generate_cached(requests, max_answer_length)
         if self.family != VIT_FAMILY:
             # JAX's words: the HTTP server sends them as a 400's body
             raise ValueError(
@@ -211,12 +244,7 @@ class VQAInferenceSession:
                 f"this session serves a {self.family!r} model — use "
                 f"ask/ask_batch for classification answers")
         tokenizer = self.collate.tokenizer
-        if str(getattr(tokenizer, "scheme", "")).startswith("hash"):
-            import warnings
-            warnings.warn(
-                "generate_batch: the session's tokenizer is the offline hash "
-                "fallback: generated ids are NOT invertible to text and "
-                "answer_text holds '<id>' placeholders", stacklevel=2)
+        self._warn_hash_tokenizer()
         pending = []   # (device tokens, device scores or None, n_valid)
         for start in range(0, len(requests), self.batch_size):
             chunk = requests[start:start + self.batch_size]
@@ -251,7 +279,56 @@ class VQAInferenceSession:
                 out.append(rec)
         return out
 
+    def _generate_cached(self, requests: Sequence[Tuple[str, str]],
+                         max_answer_length: int) -> List[dict]:
+        """The ``kimi_vl`` family: per request ``{"answer_text",
+        "token_ids", "token_logprobs"}``, the tokens up to and with the end
+        token, and at each of their steps the top-5 ``"ids"`` and their fp32
+        log-prob ``"values"``."""
+        self._warn_hash_tokenizer()
+        pending = []   # (device tokens, top ids, top log-probs, n_valid)
+        for start in range(0, len(requests), self.batch_size):
+            chunk = requests[start:start + self.batch_size]
+            batch = self._to_device(self._collate_prompts(chunk))
+            with torch.inference_mode():
+                out = generation.cached_greedy_generate(
+                    self.model, batch["input_ids"], batch["lengths"],
+                    batch["pixel_values"], max_answer_length)
+            pending.append((out, len(chunk)))
+        records: List[dict] = []
+        eos = self.collate.eos
+        for out, n in pending:
+            with span("session.readback"):
+                tokens, ids, values = (t[:n].cpu().numpy() for t in out)
+            for i in range(n):
+                row = [int(t) for t in tokens[i]]
+                end = row.index(eos) + 1 if eos in row else len(row)
+                records.append({
+                    "answer_text": self.collate.tokenizer.decode(
+                        [t for t in row[:end] if t != eos]),
+                    "token_ids": row[:end],
+                    "token_logprobs": {"ids": ids[i, :end].tolist(),
+                                       "values": values[i, :end].tolist()}})
+        return records
+
     # ------------------------------------------------------------- internals
+
+    def _warn_hash_tokenizer(self) -> None:
+        if str(getattr(self.collate.tokenizer, "scheme", "")
+               ).startswith("hash"):
+            import warnings
+            warnings.warn(
+                "generate_batch: the session's tokenizer is the offline hash "
+                "fallback: generated ids are NOT invertible to text and "
+                "answer_text holds '<id>' placeholders", stacklevel=3)
+
+    @span("session.collate")
+    def _collate_prompts(self, chunk: Sequence[Tuple[str, str]]
+                         ) -> Dict[str, np.ndarray]:
+        """The ``kimi_vl`` family's chunk: prompts and padded images at the
+        fixed batch."""
+        count("session.chunks")
+        return self.collate(chunk, self.batch_size)
 
     @span("session.collate")
     def _collate_chunk(self, chunk: Sequence[Tuple[str, str]]

@@ -1,12 +1,24 @@
 """Models: ResNet backbone, FPN, ViT tower, T5 encoder and decoder, RoBERTa
 pieces, the VQA models of the four families (ResNet, Faster-RCNN, ViT + T5
-encoder-decoder, ViT x RoBERTa cross-attention), and answer generation."""
+encoder-decoder, ViT x RoBERTa cross-attention), Kimi-VL (MoonViT and a
+DeepSeek-V3 decoder), and answer generation."""
 
 from .cross_attention_vqa import CrossAttentionVitVQAModel
 from .faster_rcnn_vqa import FasterRcnnVQAModel
 from .fpn import FPN
-from .generation import beam_generate, greedy_generate
+from .generation import (
+    beam_generate,
+    cached_greedy_generate,
+    greedy_generate,
+)
 from .image_input import finalize_image_input
+from .kimi_vl import (
+    KimiTextConfig,
+    KimiVLConfig,
+    KimiVLModel,
+    MoonViTConfig,
+    build_kimi_vl,
+)
 from .resnet import (
     BasicBlock,
     Bottleneck,
@@ -22,10 +34,12 @@ from .vit_vqa import VitVQAModel
 
 __all__ = [
     "BasicBlock", "Bottleneck", "CrossAttentionVitVQAModel", "FPN",
-    "FasterRcnnVQAModel", "FrozenBatchNorm", "ResNetBackbone",
+    "FasterRcnnVQAModel", "FrozenBatchNorm", "KimiTextConfig",
+    "KimiVLConfig", "KimiVLModel", "MoonViTConfig", "ResNetBackbone",
     "ResnetVQAModel", "RobertaConfig", "RobertaEmbeddings", "RobertaLayer",
     "T5Config", "T5Decoder", "T5Encoder",
     "T5ForConditionalGeneration", "ViTConfig", "ViTModel", "VitVQAModel",
-    "beam_generate", "finalize_image_input", "greedy_generate",
+    "beam_generate", "build_kimi_vl", "cached_greedy_generate",
+    "finalize_image_input", "greedy_generate",
     "init_weights", "resnet_out_channels",
 ]

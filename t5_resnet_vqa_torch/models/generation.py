@@ -1,4 +1,5 @@
-"""Greedy and beam answer generation for the ViT + T5 encoder-decoder model.
+"""Greedy and beam answer generation for the ViT + T5 encoder-decoder model,
+and greedy generation through a KV cache for Kimi-VL.
 
 PyTorch counterpart of ``t5_resnet_vqa_tpu/models/generation.py``: the
 "[Question] {q} [Answer]" prompt is continued over the T5 vocabulary through
@@ -11,6 +12,14 @@ position goes through the LM head: each position's logits are independent
 of the others, so this is the JAX package's [B, L, vocab] product without
 the rows it discards.
 
+``cached_greedy_generate`` (the ``kimi_vl`` family, ``models/kimi_vl.py``)
+runs the prompt once (prefill: the image tokens, the whole prompt, the
+latent cache written) and then one token a step: each decode step reads
+the cache and writes its own entry at the row's next position, so no step
+runs the prompt again. Rows keep their own prompt lengths. It returns the
+greedy tokens with the fp32 log-probabilities of the top tokens at every
+step. Its counters: ``generate.prefills``, ``generate.steps``.
+
 Call under ``torch.inference_mode()`` (the session does).
 """
 
@@ -21,6 +30,7 @@ from typing import Tuple
 import torch
 
 from ..core import constants
+from ..utils.profiling import count
 
 
 def _extend(ids: torch.Tensor, mask: torch.Tensor, extra: int):
@@ -122,3 +132,33 @@ def beam_generate(model, question_input_ids, question_attention_masks,
     ids_best = ids_k[torch.arange(B, device=dev) * K + best]
     take = prompt_len[:, None] + torch.arange(max_answer_length, device=dev)
     return ids_best.gather(1, take), norm.gather(1, best[:, None])[:, 0]
+
+
+def cached_greedy_generate(model, input_ids: torch.Tensor,
+                           lengths: torch.Tensor, pixel_values: torch.Tensor,
+                           max_answer_length: int = 5, top_k: int = 5
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Greedy answers of a ``KimiVLModel``: prompts ``input_ids`` [B, S]
+    padded on the right to S, row b's of length ``lengths[b]``, and their
+    images. -> (tokens [B, T], the top ``top_k`` ids [B, T, k] and their
+    fp32 log-probs [B, T, k] at each of the T = ``max_answer_length``
+    steps); the token of a step is its top id. Every row runs all T steps
+    (the caller cuts an answer at its end token)."""
+    B, S = input_ids.shape
+    images = model.encode_images(pixel_values)
+    cache = model.new_cache(B, S + max_answer_length - 1)
+    count("generate.prefills")
+    logits = model.prefill(input_ids, lengths, images, cache)
+    positions = lengths - 1
+    ids, values = [], []
+    for t in range(max_answer_length):
+        if t:
+            count("generate.steps")
+            positions = positions + 1
+            logits = model.decode_step(ids[-1][:, 0], positions, cache, S + t)
+        top = logits.log_softmax(dim=-1).topk(top_k, dim=-1)
+        ids.append(top.indices)
+        values.append(top.values)
+    ids, values = torch.stack(ids, dim=1), torch.stack(values, dim=1)
+    return ids[..., 0], ids, values

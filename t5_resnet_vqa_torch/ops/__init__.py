@@ -1,4 +1,6 @@
-"""Fusion ops and the hand-written CUDA kernels with their plain versions."""
+"""Fusion ops and the hand-written CUDA kernels with their plain versions;
+Kimi-VL's sparse experts (``moe``) and latent attention (``mla``), on
+library calls."""
 
 from .attention import attention_reference, fused_attention
 from .bottleneck import bottleneck_reference, fold_conv_bn, fused_bottleneck

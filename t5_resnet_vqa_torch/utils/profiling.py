@@ -37,6 +37,12 @@ The ranges (each ``vqa.`` + the name):
     RoBERTa layer), ``model.fusion`` (projection and SGA blocks; each
     layer's concat and LayerNorm), ``model.head`` (pooler, classifier,
     log-softmax);
+  * Kimi-VL (``models/kimi_vl.py``): ``model.vision`` (MoonViT and the
+    projector), ``model.prefill`` (the decoder over the prompt),
+    ``model.decode`` (one a cached decode step), and its ops ``op.mla``
+    (prefill attention), ``op.mla_decode`` (attention over the latent
+    cache) and ``op.moe`` (``ops/moe.py``: routing, dispatch, the experts'
+    grouped products, combine and shared expert);
   * kernel 1 (``ops/attention.py``): ``op.attention`` around every
     ``fused_attention`` call, ``op.attention_bwd`` around the CUDA path of
     its backward, on the thread autograd runs it on;
@@ -55,7 +61,11 @@ batch, and one at the end of a pass), ``input.waits_empty`` (of those,
 the ones that found the queue empty, so that the step waited for the
 producer); ``text.forwards`` (every ``T5Encoder`` forward, in
 ``models/t5.py``), ``text.graph_replays`` (those that ran as a replay of
-a CUDA graph) and ``text.graph_captures`` (one per captured signature).
+a CUDA graph) and ``text.graph_captures`` (one per captured signature);
+``moe.calls``, ``moe.rows`` (rows routed, top-k counted) and
+``moe.busiest_rows`` (the sum over calls of the busiest expert's rows, a
+device count), ``generate.prefills`` and ``generate.steps`` (Kimi-VL's
+cached generation, ``models/generation.py``).
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ PREFIX = "vqa."
 
 _lock = threading.Lock()
 _counters: Dict[str, int] = collections.Counter()
+_pending: Dict[str, torch.Tensor] = {}
 
 
 def _recording() -> bool:
@@ -135,21 +146,32 @@ def span(name: str):
     return idle
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name``. ``n`` may be a one-element
+    tensor on a device: it is summed there, with no wait for the device,
+    and read into the counter when ``counters()`` is next called."""
     with _lock:
-        _counters[name] += n
+        if isinstance(n, torch.Tensor):
+            n = n.detach().reshape(()).to(torch.int64)
+            held = _pending.get(name)
+            _pending[name] = n if held is None else held + n
+        else:
+            _counters[name] += n
 
 
 def counters() -> Dict[str, int]:
-    """A copy of every counter."""
+    """A copy of every counter (a device count waits for its device)."""
     with _lock:
+        for name, n in _pending.items():
+            _counters[name] += int(n)
+        _pending.clear()
         return dict(_counters)
 
 
 def reset_counters() -> None:
     with _lock:
         _counters.clear()
+        _pending.clear()
 
 
 def _all_threads_config():
